@@ -1,0 +1,20 @@
+"""h2o-danube-3-4b — llama+mistral mix with sliding-window attention.
+[arXiv:2401.16818; unverified]
+24L d_model=3840 32H (GQA kv=8) d_ff=10240 vocab=32000
+"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    arch_id="h2o-danube-3-4b",
+    family="dense",
+    n_layers=24,
+    d_model=3840,
+    n_heads=32,
+    n_kv_heads=8,
+    d_ff=10240,
+    vocab_size=32000,
+    head_dim=120,
+    swa_window=4096,      # mistral-style sliding window -> sub-quadratic decode
+    rope_theta=10_000.0,
+    source="arXiv:2401.16818",
+)

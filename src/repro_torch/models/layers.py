@@ -1,0 +1,53 @@
+"""Base layers: norms, rotary embeddings, embedding lookup.
+
+Twin of ``repro.models.layers``.  Norms upcast to float32 and cast back;
+RoPE uses the split-half convention (first half / second half of the head
+dimension rotate together), not the interleaved one.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def rmsnorm(params, x, eps: float = 1e-5):
+    dtype = x.dtype
+    x = x.float()
+    var = x.square().mean(dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    return (x * params["scale"].float()).to(dtype)
+
+
+def layernorm(params, x, eps: float = 1e-5):
+    dtype = x.dtype
+    x = x.float()
+    mu = x.mean(dim=-1, keepdim=True)
+    var = (x - mu).square().mean(dim=-1, keepdim=True)
+    x = (x - mu) * torch.rsqrt(var + eps)
+    return (x * params["scale"].float() + params["bias"].float()).to(dtype)
+
+
+def norm_apply(params, x, eps: float = 1e-5):
+    if "bias" in params:
+        return layernorm(params, x, eps)
+    return rmsnorm(params, x, eps)
+
+
+def rope_freqs(head_dim: int, theta: float, device=None):
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x, positions, theta: float):
+    """x: (..., S, H, D) with even D; positions: broadcastable to (..., S)."""
+    d = x.shape[-1]
+    inv = rope_freqs(d, theta, device=x.device)            # (D/2,)
+    ang = positions[..., None].float() * inv                # (..., S, D/2)
+    cos = torch.cos(ang)[..., None, :]                      # (..., S, 1, D/2)
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def embed_lookup(params, ids):
+    return params["table"][ids]

@@ -1,0 +1,73 @@
+"""The port stands alone: every ``repro_torch`` module and ``chip_smoke``
+import with ``jax`` and ``repro`` blocked, and no source of the port
+names either in an import statement."""
+import ast
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+_CHILD = r"""
+import importlib, importlib.abc, pkgutil, sys
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        top = name.split(".")[0]
+        if top in ("jax", "jaxlib", "repro"):
+            raise ImportError(f"blocked import of {name}")
+        return None
+
+sys.meta_path.insert(0, Block())
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for n in names:
+    importlib.import_module(n)
+import chip_smoke
+assert not any(m.split(".")[0] in ("jax", "repro") for m in sys.modules)
+print(len(names))
+"""
+
+
+def test_port_imports_with_jax_and_repro_blocked():
+    env = dict(os.environ, PYTHONPATH=f"{ROOT / 'src'}{os.pathsep}{ROOT}",
+               JAX_PLATFORMS="cpu")
+    out = subprocess.run([sys.executable, "-c", _CHILD], env=env,
+                         capture_output=True, text=True, timeout=120,
+                         cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip().splitlines()[-1]) >= 20  # every module
+
+
+def _imported(path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+_TEXT = re.compile(r"^\s*(import jax|from jax|import repro\.|from repro\.)",
+                   re.M)
+
+
+@pytest.mark.parametrize("path", SOURCES,
+                         ids=[str(p.relative_to(ROOT)) for p in SOURCES])
+def test_port_source_names_no_jax_or_repro(path):
+    tops = {m.split(".")[0] for m in _imported(path)}
+    assert not tops & {"jax", "jaxlib", "repro"}, tops
+    assert not _TEXT.search(path.read_text())
+
+
+def test_static_check_tells_repro_from_repro_torch():
+    assert _TEXT.search("from repro.serve import x\n")
+    assert _TEXT.search("import jax.numpy as jnp\n")
+    assert not _TEXT.search("from repro_torch.serve import x\n")
+    assert not _TEXT.search("import repro_torch\n")
