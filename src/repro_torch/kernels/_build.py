@@ -3,9 +3,10 @@
 Each ``repro_torch/csrc/<name>.cu`` becomes one shared library with a plain
 C interface, compiled for Hopper (``sm_90a``) into ``build/repro_torch/``
 at the repository root (git-ignored).  The library's file name carries a
-hash of its source and the flags, so an edited source is rebuilt at its
-next use and a stale library is never loaded.  Nothing here runs at import
-time: the CPU tests import every module.
+hash of its source, the shared headers (``csrc/*.cuh``) and the flags, so
+an edited source or header is rebuilt at its next use and a stale library
+is never loaded.  ``build`` starts one ``nvcc`` per source, all at once.
+Nothing here runs at import time: the CPU tests import every module.
 """
 from __future__ import annotations
 
@@ -44,33 +45,42 @@ def _nvcc() -> str:
 
 def lib_path(name: str) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for header in sorted(SRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(sources()[name].read_bytes())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
-    """Compile every named source (default: all) whose library is missing.
-    Returns the seconds each build took (0.0 for a library that was already
-    there).  The compiler's report (registers, shared memory, spills) goes
-    to ``<lib>.log``."""
+    """Compile every named source (default: all) whose library is missing,
+    one ``nvcc`` process per source, all started together.  Returns the
+    seconds each build took (0.0 for a library that was already there).
+    The compiler's report (registers, shared memory, spills) goes to
+    ``<lib>.log``."""
     names = list(sources()) if names is None else list(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     took = {n: 0.0 for n in names}
+    procs = {}
     for n in names:
         out = lib_path(n)
         if out.exists():
             continue
         tmp = out.with_suffix(f".tmp{os.getpid()}")
-        t0 = time.perf_counter()
-        proc = subprocess.run(
+        procs[n] = (time.perf_counter(), tmp, subprocess.Popen(
             [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(sources()[n])],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for n, (t0, tmp, proc) in procs.items():
+        log, _ = proc.communicate()
         took[n] = time.perf_counter() - t0
-        out.with_suffix(".log").write_text(proc.stdout)
+        lib_path(n).with_suffix(".log").write_text(log)
         if proc.returncode != 0:
-            raise RuntimeError(f"CUDA build of {n} failed: nvcc exit "
-                               f"{proc.returncode}\n{proc.stdout}")
-        os.replace(tmp, out)
+            failed.append(f"CUDA build of {n} failed: nvcc exit "
+                          f"{proc.returncode}\n{log}")
+        else:
+            os.replace(tmp, lib_path(n))
+    if failed:
+        raise RuntimeError("\n".join(failed))
     return took
 
 

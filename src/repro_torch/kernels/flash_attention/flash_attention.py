@@ -1,0 +1,144 @@
+"""CUDA flash-attention forward kernel for Hopper: the wrapper.
+
+Replaces the Pallas TPU kernel ``_fa_kernel``
+(``src/repro/kernels/flash_attention/flash_attention.py:36``), the
+training and prefill hot spot: blockwise online-softmax attention with an
+optional log-sum-exp output for the backward pass.  The kernel is
+``repro_torch/csrc/flash_attention.cu``, built with ``nvcc`` for
+``sm_90a`` at first use (:mod:`repro_torch.kernels._build`) and bound
+through ``ctypes``.
+
+What bounds it on an H100: its arithmetic, ``4 * D`` flops for every
+visible (query, key) pair, over the tensor cores' 989 TFLOP/s in bf16;
+the bytes of q, k, v and o are far below that line.  The design keeps
+scores in shared memory and registers, never in device memory, indexes the
+KV head as ``h // group`` without repeating KV, skips tile pairs that the
+causal or window mask removes whole, and keeps the softmax state and the
+accumulator in float32.  It runs in float32 FMA on the CUDA cores: wgmma
+and TMA are later work.
+
+The kernel reads every tensor through its strides (d contiguous), so the
+model's (B, S, H, D) activations go in as a transposed view with no copy.
+This wrapper launches or raises: it never falls back to the plain version
+(``ref.py``), and it does not synchronise.  ``LAUNCHES`` counts its
+launches, so a run can show that its main path went through the kernel.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+
+LAUNCHES = 0
+
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (32, 64, 128)
+_FN = None
+
+
+def _fn():
+    global _FN
+    if _FN is None:
+        fn = _build.load("flash_attention").repro_flash_attention_fwd
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i,
+                       ctypes.c_float, i, p]
+        fn.restype = ctypes.c_int
+        _FN = fn
+    return _FN
+
+
+def readable(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself when the kernels can read it through its strides (d
+    contiguous, every other stride a multiple of 4 elements, base 16-byte
+    aligned), else a contiguous copy."""
+    ok = (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+          and all(s % 4 == 0 for n, s in zip(t.shape[:-1], t.stride()[:-1])
+                  if n > 1))
+    return t if ok else t.contiguous()
+
+
+def strides(*tensors) -> ctypes.Array:
+    """The (b, head, s) element strides of each 4-d tensor, in order."""
+    vals = [s for t in tensors for s in t.stride()[:3]]
+    return (ctypes.c_longlong * len(vals))(*vals)
+
+
+def check_qkv(name: str, q, k, v, *more):
+    """Device, dtype and shape checks shared by the three kernels' wrappers:
+    q (B, H, Sq, D), k and v (B, K, Sk, D), ``more`` shaped like q."""
+    for t in (q, k, v, *more):
+        if t.device != q.device or q.device.type != "cuda":
+            raise ValueError(f"{name}: a tensor is on {t.device}; every "
+                             "input must be on the same CUDA device")
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name}: dtypes differ ({t.dtype} vs "
+                            f"{q.dtype})")
+    if q.dtype not in DTYPES:
+        raise TypeError(f"{name}: dtype {q.dtype} is not float32 or "
+                        "bfloat16")
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"{name}: q must be (B, H, Sq, D) and k, v "
+                         "(B, K, Sk, D)")
+    b, h, sq, d = q.shape
+    _, kh, sk, _ = k.shape
+    if k.shape[0] != b or k.shape[3] != d or d not in HEAD_DIMS:
+        raise ValueError(f"{name}: k/v {tuple(k.shape)} do not match q "
+                         f"{tuple(q.shape)}, or head_dim {d} is not in "
+                         f"{HEAD_DIMS}")
+    if kh == 0 or h % kh:
+        raise ValueError(f"{name}: {h} query heads do not group over {kh} "
+                         "KV heads")
+    if sk == 0:
+        raise ValueError(f"{name}: no keys")
+    for t in more:
+        if t.shape != q.shape:
+            raise ValueError(f"{name}: {tuple(t.shape)} is not q's shape "
+                             f"{tuple(q.shape)}")
+
+
+def check_lse(name: str, lse, q):
+    b, h, sq, _ = q.shape
+    if (lse.device != q.device or lse.dtype != torch.float32
+            or tuple(lse.shape) != (b, h, sq) or not lse.is_contiguous()):
+        raise ValueError(f"{name}: lse must be a contiguous float32 "
+                         f"(B, H, Sq) = {(b, h, sq)} tensor on {q.device}")
+
+
+def run(fn, device, *args) -> None:
+    """Call one C entry with the current stream of ``device`` appended;
+    raise on a non-zero CUDA error."""
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err:
+        raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {err}")
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    sm_scale: Optional[float] = None,
+                    return_lse: bool = False):
+    """Flash-attention forward on the card.
+
+    q (B, H, Sq, D); k, v (B, K, Sk, D) -> o (B, H, Sq, D) in q's dtype
+    and layout, and with ``return_lse`` also lse (B, H, Sq) float32.
+    H must be a multiple of K (GQA)."""
+    global LAUNCHES
+    check_qkv("flash_attention", q, k, v)
+    q, k, v = readable(q), readable(k), readable(v)
+    b, h, sq, d = q.shape
+    kh, sk = k.shape[1], k.shape[2]
+    o = torch.empty_like(q)
+    lse = (torch.empty(b, h, sq, dtype=torch.float32, device=q.device)
+           if return_lse else None)
+    if q.numel():
+        scale = 1.0 / math.sqrt(d) if sm_scale is None else float(sm_scale)
+        LAUNCHES += 1
+        run(_fn(), q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            o.data_ptr(), None if lse is None else lse.data_ptr(),
+            strides(q, k, v, o), b, h, kh, sq, sk, d, int(causal),
+            int(window), scale, DTYPES[q.dtype])
+    return (o, lse) if return_lse else o

@@ -5,23 +5,35 @@ JAX, run them without the JAX-importing ``conftest.py``:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
-This file imports nothing of JAX or of the JAX package.  Tolerances: the
-kernel against its plain version in float32 at atol 2e-5 (the JAX
-package's kernel tolerance), in bf16 at atol 2e-2 against the plain
-version run in float32 on the same bf16 inputs.
+This file imports nothing of JAX or of the JAX package.  Tolerances: a
+kernel's output against its plain version in float32 at atol 2e-5 (the
+JAX package's kernel tolerance; 5e-4 for the flash-attention gradients, as
+its backward tests), in bf16 at atol 2e-2 against the plain version run in
+float32 on the same bf16 inputs.  The bf16 flash-attention gradients are
+held to atol 5e-4 plus rtol 2^-8: the kernels compute in float32 from the
+same bf16 values, so they differ from the plain version by summation order
+and by the one bf16 rounding of the stored gradient, at most 2^-9 of its
+value.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.configs.base import ShapeConfig
 from repro_torch.core.services.mmu import MMU, MMUConfig
+from repro_torch.kernels.flash_attention import flash_attention as fa
+from repro_torch.kernels.flash_attention import flash_attention_bwd as fab
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                     attention_ref)
 from repro_torch.kernels.paged_attention import ops
 from repro_torch.kernels.paged_attention import paged_attention as pa
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 from repro_torch.models.transformer import init_params
 from repro_torch.serve import paged_model as P
 from repro_torch.serve.engine import ServingEngine
+from repro_torch.train.loop import TrainConfig, Trainer
 
 pytestmark = pytest.mark.cuda
 
@@ -140,3 +152,150 @@ def test_engine_on_the_card_matches_the_cpu(card):
     got = _serve(cfg, card, modes)
     assert pa.LAUNCHES > before
     assert got == _serve(cfg, "cpu", modes)
+
+
+# ----------------------------------------------------------- flash attention
+FA_CASES = [                    # b, h, kh, sq, sk, d, causal, window
+    (2, 4, 2, 256, 256, 64, True, 0),     # tests/test_kernels.py FA_CASES
+    (1, 8, 8, 128, 384, 128, True, 0),
+    (2, 4, 1, 200, 200, 64, True, 0),     # ragged: last tile part-filled
+    (1, 4, 2, 256, 256, 64, True, 128),   # sliding window
+    (1, 2, 2, 128, 256, 64, False, 0),    # cross-attention shape
+    (1, 4, 2, 128, 128, 64, True, 0),
+    (2, 4, 2, 77, 77, 32, True, 0),       # head_dim 32: the reduced model
+]
+BWD_CASES = [                   # tests/test_kernels.py BWD_CASES
+    (1, 4, 2, 128, 128, 64, True, 0),
+    (2, 2, 1, 96, 160, 64, True, 0),
+    (1, 4, 4, 128, 128, 64, False, 0),
+    (1, 2, 2, 128, 128, 64, True, 64),
+    (1, 2, 1, 100, 100, 128, True, 0),
+]
+
+
+def _fa_inputs(case, seed, dtype, card, n=3):
+    b, h, kh, sq, sk, d = case[:6]
+    rs = np.random.RandomState(seed)
+    shapes = [(b, h, sq, d), (b, kh, sk, d), (b, kh, sk, d)]
+    shapes += [(b, h, sq, d)] * (n - 3)
+    return [torch.tensor(rs.randn(*s).astype(np.float32)).to(card, dtype)
+            for s in shapes]
+
+
+def _close_grad(got, want, dtype):
+    rtol = 0.0 if dtype == "float32" else 2.0 ** -8
+    torch.testing.assert_close(got.float(), want, atol=5e-4, rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", FA_CASES,
+                         ids=[f"fa{i}" for i in range(len(FA_CASES))])
+def test_flash_forward_matches_plain_version(card, case, dtype):
+    causal, window = case[6], case[7]
+    q, k, v = _fa_inputs(case, 4, getattr(torch, dtype), card)
+    before = fa.LAUNCHES
+    o, lse = fa.flash_attention(q, k, v, causal=causal, window=window,
+                                return_lse=True)
+    assert fa.LAUNCHES == before + 1
+    want_o, want_lse = attention_ref(q.float(), k.float(), v.float(),
+                                     causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert o.dtype == q.dtype and lse.dtype == torch.float32
+    torch.testing.assert_close(o.float(), want_o, atol=ATOL[dtype], rtol=0)
+    torch.testing.assert_close(lse, want_lse, atol=ATOL[dtype], rtol=0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", BWD_CASES,
+                         ids=[f"fabwd{i}" for i in range(len(BWD_CASES))])
+def test_flash_backward_matches_plain_version(card, case, dtype):
+    causal, window = case[6], case[7]
+    q, k, v, do = _fa_inputs(case, 5, getattr(torch, dtype), card, n=4)
+    o, lse = fa.flash_attention(q, k, v, causal=causal, window=window,
+                                return_lse=True)
+    before = (fab.DQ_LAUNCHES, fab.DKV_LAUNCHES)
+    dq, dk, dv = fab.flash_attention_bwd(q, k, v, o, do, lse, causal=causal,
+                                         window=window)
+    assert (fab.DQ_LAUNCHES, fab.DKV_LAUNCHES) == (before[0] + 1,
+                                                   before[1] + 1)
+    want = attention_bwd_ref(*(t.float() for t in (q, k, v, o, do)), lse,
+                             causal=causal, window=window)
+    torch.cuda.synchronize()
+    for got, ref in zip((dq, dk, dv), want):
+        assert got.dtype == q.dtype
+        _close_grad(got, ref, dtype)
+
+
+def test_flash_kernels_read_the_model_layout_through_strides(card):
+    """(B, S, H, D) activations go in as transposed views, no copy: the
+    outputs keep that layout and equal the contiguous inputs' results."""
+    rs = np.random.RandomState(6)
+    b, s, h, kh, d = 2, 130, 6, 2, 64
+    q, k, v, do = (torch.tensor(rs.randn(b, s, n, d).astype(np.float32),
+                                device=card).transpose(1, 2)
+                   for n in (h, kh, kh, h))
+    o, lse = fa.flash_attention(q, k, v, return_lse=True)
+    assert o.stride() == q.stride()
+    grads = fab.flash_attention_bwd(q, k, v, o, do, lse)
+    want_o, want_lse = fa.flash_attention(*(t.contiguous() for t in (q, k, v)),
+                                          return_lse=True)
+    want = fab.flash_attention_bwd(*(t.contiguous()
+                                     for t in (q, k, v, o, do)), want_lse)
+    torch.cuda.synchronize()
+    assert torch.equal(o, want_o) and torch.equal(lse, want_lse)
+    for got, ref in zip(grads, want):
+        assert torch.equal(got, ref)
+
+
+def test_flash_wrappers_reject_what_the_kernels_do_not_take(card):
+    q, k, v = _fa_inputs(FA_CASES[0], 1, torch.float32, card)
+    before = (fa.LAUNCHES, fab.DQ_LAUNCHES, fab.DKV_LAUNCHES)
+    with pytest.raises(TypeError):
+        fa.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(TypeError):
+        fa.flash_attention(q, k.bfloat16(), v.bfloat16())
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention(q[..., :48], k[..., :48], v[..., :48])
+    with pytest.raises(ValueError, match="group"):
+        fa.flash_attention(q[:, :3], k, v)
+    with pytest.raises(ValueError, match="CUDA device"):
+        fa.flash_attention(q, k.cpu(), v)
+    lse = torch.zeros(q.shape[:3], device=card)
+    with pytest.raises(ValueError, match="lse"):
+        fab.flash_attention_bwd(q, k, v, q, q, lse.double())
+    assert (fa.LAUNCHES, fab.DQ_LAUNCHES, fab.DKV_LAUNCHES) == before
+
+
+@pytest.mark.parametrize("heads", [(2, 2), (4, 2)], ids=["mha", "gqa"])
+def test_mha_fused_gradient_matches_autograd_of_plain_forward(card, heads):
+    """The port's twin of test_mha_fused_custom_vjp_end_to_end (atol 1e-3)."""
+    h, kh = heads
+    q, k, v = (t.requires_grad_(True) for t in
+               _fa_inputs((1, h, kh, 128, 128, 64), 8, torch.float32, card))
+    before = (fa.LAUNCHES, fab.DQ_LAUNCHES, fab.DKV_LAUNCHES)
+    g1 = torch.autograd.grad((fa_ops.mha_fused(q, k, v) ** 2).sum(),
+                             (q, k, v))
+    assert (fa.LAUNCHES, fab.DQ_LAUNCHES, fab.DKV_LAUNCHES) == tuple(
+        n + 1 for n in before)
+    g2 = torch.autograd.grad((attention_ref(q, k, v)[0] ** 2).sum(),
+                             (q, k, v))
+    for a, b in zip(g1, g2):
+        torch.testing.assert_close(a, b, atol=1e-3, rtol=0)
+
+
+def test_trainer_on_the_card_matches_the_cpu(card, tmp_path):
+    """Reduced smollm, fp32, 3 steps from the same weights: the card (the
+    flash kernels) and the CPU (the chunked plain attention) agree."""
+    cfg = get_config("smollm-135m").reduced()
+    shape = ShapeConfig("t", "train", 96, 2)
+    runs = {}
+    for dev in ("cpu", card):
+        before = fa.LAUNCHES
+        t = Trainer(cfg, shape, TrainConfig(
+            steps=3, log_every=1, ckpt_every=0, seed=4,
+            ckpt_dir=str(tmp_path)), device=dev)
+        t.run()
+        if dev == card:
+            assert fa.LAUNCHES - before == 3 * cfg.n_layers
+        runs[str(dev)] = [m["loss"] for m in t.metrics_log]
+    np.testing.assert_allclose(runs["cuda"], runs["cpu"], atol=1e-4)

@@ -1,0 +1,188 @@
+"""Port flash attention against the JAX reference, on the CPU.
+
+The port's plain versions (the CPU path of ``ops.mha_fused`` and
+``ops.mha``) are held to the reference's ``attention_ref`` and to its
+Pallas kernels run in interpret mode, on the cases of
+``tests/test_kernels.py``; ``attend_chunked`` is held to the reference's
+on the same numpy inputs.  Tolerances are the reference's own kernel
+tests': forward float32 atol 2e-5 (bf16 2e-2: one rounding of the bf16
+output apart), backward float32 atol 5e-4, ``mha_fused`` gradients atol
+1e-3.  The CUDA kernels themselves run only on the card:
+``tests/test_torch_cuda.py``.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+try:
+    from hypothesis import given, settings, strategies as st
+except ImportError:          # offline env: deterministic shim
+    from _hypothesis_fallback import given, settings, strategies as st
+
+from repro.kernels.flash_attention import ops as jops
+from repro.kernels.flash_attention.flash_attention import \
+    flash_attention as pallas_flash_attention
+from repro.kernels.flash_attention.flash_attention_bwd import \
+    flash_attention_bwd as pallas_flash_attention_bwd
+from repro.kernels.flash_attention.ref import attention_ref as jref
+from repro.models import attention as JA
+from repro_torch.kernels.flash_attention import flash_attention as fa
+from repro_torch.kernels.flash_attention import flash_attention_bwd as fab
+from repro_torch.kernels.flash_attention import ops
+from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                     attention_ref)
+from repro_torch.models import attention
+
+# small shapes: one intra-op thread is faster and leaves the cores to
+# the other test workers
+torch.set_num_threads(1)
+
+FA_CASES = [                    # tests/test_kernels.py FA_CASES
+    (2, 4, 2, 256, 256, 64, True, 0, "float32"),
+    (1, 8, 8, 128, 384, 128, True, 0, "float32"),
+    (2, 4, 1, 200, 200, 64, True, 0, "float32"),    # pad path
+    (1, 4, 2, 256, 256, 64, True, 128, "float32"),  # SWA
+    (1, 2, 2, 128, 256, 64, False, 0, "float32"),   # cross-attn
+    (1, 4, 2, 128, 128, 64, True, 0, "bfloat16"),   # low precision
+]
+BWD_CASES = [                   # tests/test_kernels.py BWD_CASES
+    (1, 4, 2, 128, 128, 64, True, 0),
+    (2, 2, 1, 96, 160, 64, True, 0),     # padded + MHA-as-GQA
+    (1, 4, 4, 128, 128, 64, False, 0),   # non-causal
+    (1, 2, 2, 128, 128, 64, True, 64),   # sliding window
+]
+ATOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+
+def _np_inputs(b, h, kh, sq, sk, d, seed, n=3):
+    rs = np.random.RandomState(seed)
+    shapes = [(b, h, sq, d), (b, kh, sk, d), (b, kh, sk, d)]
+    shapes += [(b, h, sq, d)] * (n - 3)
+    return [rs.randn(*s).astype(np.float32) for s in shapes]
+
+
+def _f32(x):
+    return np.asarray(jnp.asarray(x, jnp.float32))
+
+
+@pytest.mark.parametrize("case", FA_CASES,
+                         ids=[f"fa{i}" for i in range(len(FA_CASES))])
+def test_plain_forward_matches_reference_and_pallas(case):
+    b, h, kh, sq, sk, d, causal, window, dtype = case
+    arrs = _np_inputs(b, h, kh, sq, sk, d, 0)
+    jx = [jnp.asarray(a).astype(getattr(jnp, dtype)) for a in arrs]
+    tx = [torch.tensor(a).to(getattr(torch, dtype)) for a in arrs]
+    o, lse = attention_ref(*tx, causal=causal, window=window)
+    assert o.dtype == tx[0].dtype and lse.dtype == torch.float32
+    o_p, lse_p = pallas_flash_attention(*jx, causal=causal, window=window,
+                                        interpret=True, return_lse=True)
+    o_r = jref(*jx, causal=causal, window=window)
+    for want in (o_p, o_r):
+        np.testing.assert_allclose(o.float().numpy(), _f32(want),
+                                   atol=ATOL[dtype])
+    np.testing.assert_allclose(lse.numpy(), np.asarray(lse_p), atol=2e-5)
+
+
+@pytest.mark.parametrize("case", BWD_CASES,
+                         ids=[f"fabwd{i}" for i in range(len(BWD_CASES))])
+def test_plain_backward_matches_pallas_and_grad_of_reference(case):
+    b, h, kh, sq, sk, d, causal, window = case
+    q, k, v, do = _np_inputs(b, h, kh, sq, sk, d, 7, n=4)
+    jq, jk, jv, jdo = map(jnp.asarray, (q, k, v, do))
+    o, lse = pallas_flash_attention(jq, jk, jv, causal=causal, window=window,
+                                    interpret=True, return_lse=True)
+    want_p = pallas_flash_attention_bwd(jq, jk, jv, o, jdo, lse,
+                                        causal=causal, window=window,
+                                        interpret=True)
+    want_g = jax.grad(lambda q, k, v: jnp.sum(
+        jref(q, k, v, causal=causal, window=window) * jdo),
+        argnums=(0, 1, 2))(jq, jk, jv)
+    got = attention_bwd_ref(*(torch.tensor(np.asarray(x)) for x in
+                              (q, k, v, o, do, lse)),
+                            causal=causal, window=window)
+    for g, wp, wg in zip(got, want_p, want_g):
+        np.testing.assert_allclose(g.numpy(), np.asarray(wp), atol=5e-4)
+        np.testing.assert_allclose(g.numpy(), np.asarray(wg), atol=5e-4)
+
+
+@pytest.mark.parametrize("heads", [(2, 2), (4, 2)], ids=["mha", "gqa"])
+def test_mha_fused_on_cpu_matches_grad_of_jax_mha_fused(heads):
+    """The port's autograd.Function (plain versions on CPU tensors) against
+    jax.grad of the reference's custom_vjp (Pallas, interpret mode)."""
+    h, kh = heads
+    arrs = _np_inputs(1, h, kh, 128, 128, 64, 8)
+    jv, jg = jax.value_and_grad(
+        lambda q, k, v: jnp.sum(jops.mha_fused(q, k, v, True, 0, True) ** 2),
+        argnums=(0, 1, 2))(*map(jnp.asarray, arrs))
+    tx = [torch.tensor(a, requires_grad=True) for a in arrs]
+    before = (fa.LAUNCHES, fab.DQ_LAUNCHES, fab.DKV_LAUNCHES)
+    val = (ops.mha_fused(*tx) ** 2).sum()
+    grads = torch.autograd.grad(val, tx)
+    assert (fa.LAUNCHES, fab.DQ_LAUNCHES, fab.DKV_LAUNCHES) == before
+    np.testing.assert_allclose(val.item(), float(jv), rtol=1e-5)
+    for g, w in zip(grads, jg):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-3)
+
+
+def test_mha_matches_reference_mha():
+    rs = np.random.RandomState(3)
+    q = rs.randn(2, 70, 4, 32).astype(np.float32)
+    k, v = (rs.randn(2, 70, 2, 32).astype(np.float32) for _ in range(2))
+    want = jops.mha(*map(jnp.asarray, (q, k, v)), causal=True, window=16)
+    got = ops.mha(*map(torch.tensor, (q, k, v)), causal=True, window=16)
+    assert got.shape == (2, 70, 4, 32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
+
+
+ATTEND_CASES = [       # b, sq, sk, h, kh, hd, causal, window, q_offset, chunk
+    (2, 40, 40, 4, 2, 32, True, 0, 0, 16),       # chunks, ragged last
+    (1, 33, 50, 4, 1, 32, True, 8, 17, 8),       # window + q_offset
+    (1, 24, 24, 2, 2, 32, False, 0, 0, 512),     # one chunk, no mask
+    (2, 64, 64, 4, 2, 32, True, 20, 0, 32),      # window, GQA
+]
+
+
+@pytest.mark.parametrize("case", ATTEND_CASES,
+                         ids=[f"att{i}" for i in range(len(ATTEND_CASES))])
+def test_attend_chunked_matches_reference(case):
+    b, sq, sk, h, kh, hd, causal, window, q_offset, chunk = case
+    rs = np.random.RandomState(11)
+    q = rs.randn(b, sq, h, hd).astype(np.float32)
+    k, v = (rs.randn(b, sk, kh, hd).astype(np.float32) for _ in range(2))
+    kw = dict(causal=causal, window=window, q_offset=q_offset, chunk=chunk)
+    want = JA.attend_chunked(*map(jnp.asarray, (q, k, v)), **kw)
+    got = attention.attend_chunked(*map(torch.tensor, (q, k, v)), **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+
+
+def test_attend_chunked_gradient_matches_reference():
+    """The CPU training path differentiates the chunked plain attention."""
+    rs = np.random.RandomState(12)
+    q = rs.randn(2, 48, 4, 32).astype(np.float32)
+    k, v = (rs.randn(2, 48, 2, 32).astype(np.float32) for _ in range(2))
+    w = rs.randn(2, 48, 4, 32).astype(np.float32)
+    jg = jax.grad(lambda q, k, v: jnp.sum(JA.attend_chunked(
+        q, k, v, chunk=16) * w), argnums=(0, 1, 2))(
+            *map(jnp.asarray, (q, k, v)))
+    tx = [torch.tensor(a, requires_grad=True) for a in (q, k, v)]
+    tg = torch.autograd.grad(
+        (attention.attend_chunked(*tx, chunk=16) * torch.tensor(w)).sum(),
+        tx)
+    for g, want in zip(tg, jg):
+        np.testing.assert_allclose(g.numpy(), np.asarray(want), atol=1e-5)
+
+
+@settings(max_examples=10, deadline=None)
+@given(sq=st.integers(17, 192), chunk=st.sampled_from([16, 32, 64, 512]),
+       window=st.sampled_from([0, 24]))
+def test_attend_chunked_chunk_size_invariance(sq, chunk, window):
+    """Twin of test_flash_attention_block_size_invariance: the output does
+    not depend on the query chunking, and equals the plain ``ops.mha``."""
+    rs = np.random.RandomState(sq)
+    q = torch.tensor(rs.randn(1, sq, 4, 32).astype(np.float32))
+    k, v = (torch.tensor(rs.randn(1, sq, 2, 32).astype(np.float32))
+            for _ in range(2))
+    got = attention.attend_chunked(q, k, v, window=window, chunk=chunk)
+    want = ops.mha(q, k, v, causal=True, window=window)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=3e-5)
