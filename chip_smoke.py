@@ -5,36 +5,46 @@
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (into the
 git-ignored ``build/``, one ``nvcc`` per source, all at once), holds each
 kernel against its plain PyTorch version on the card, drives the port's
-two main paths at the full width of smollm-135m (seeded random weights):
-requests served through ``repro_torch.serve.engine.ServingEngine`` and
-training steps through ``repro_torch.train.loop.Trainer``, checks the card
-against the CPU on the reduced model, times the kernels and profiles a
-decode step and a training step.  Phases, in order:
+three main paths at full width with seeded random weights: requests served
+through ``repro_torch.serve.engine.ServingEngine`` and training steps
+through ``repro_torch.train.loop.Trainer`` on smollm-135m, and dense-cache
+serving (``prefill`` and ``decode_step`` of ``models/transformer.py``) of
+mamba2-1.3b; checks the card against the CPU on the reduced models, times
+the kernels and profiles a decode step, a training step, a mamba prefill
+and a mamba decode step.  Phases, in order:
 
   1. device: require CUDA; print the card's name and power limit;
   2. build: compile every kernel, print the build seconds and each kernel's
-     registers and spills;
+     registers, shared memory and spills;
   3. kernels vs plain versions on the card (fp32 and bf16): paged
      attention with and without the split of rows over several blocks;
      the flash-attention forward, dq and dkv kernels on the reference's
      test cases and the training shape, and ``mha_fused``'s gradient
-     against autograd of the plain forward;
+     against autograd of the plain forward; the SSD scan on the
+     reference's cases, the reduced and the main mamba shapes, a ragged S
+     and an initial state;
   4. serving main path: 24 requests through the engine at full width, bf16;
   5. training main path: 20 steps of ``Trainer`` at full width, sequence
      2048, batch 8, fp32 masters with bf16 compute, a checkpoint every 5
      steps and an injected failure at step 12 (one restart);
-  6. card vs CPU on the reduced model, fp32: decode_step_paged, and 3
-     ``Trainer`` steps from the same weights;
+  9. mamba serving main path: 12 requests of full-width mamba2-1.3b, bf16
+     (8 prompts of 2048 tokens, 4 of 1000), two ``prefill`` calls and 64
+     greedy ``decode_step``s for each; then, with fp32 weights, decode
+     after a 1000-token prefill against the prefill of 1001 tokens;
+  6. card vs CPU on the reduced models, fp32: decode_step_paged, 3
+     ``Trainer`` steps from the same weights, mamba2 prefill and 8 decode
+     steps;
   7. kernel timing at the main paths' shapes, with each kernel's bound and
      a PyTorch library call as yardstick where one computes the same
      function;
-  8. profiles: where a steady decode step (every slot full) and a training
-     step spend their time (host wall per step untraced and traced, device
-     busy time per step, the device's idle share, launches per step, the
-     kernels that take the most device time).
+  8. profiles: where a steady decode step (every slot full), a training
+     step, a mamba prefill call and a mamba decode step spend their time
+     (host wall untraced and traced, device busy time, the device's idle
+     share, launches, the kernels that take the most device time).
 
 Each main path runs with every kernel's launch count set to 0 just before
-it and read just after it.  Any failed phase ends the script with a
+it and read just after it; each phase's number is printed at the start of
+its lines (phase 9 runs after phase 5).  Any failed phase ends the script with a
 non-zero exit and no result line.  The line before the last is a JSON
 object describing each kernel; the last line is ``{"ok": true, "device":
 {...}}``.  Imports nothing of JAX and nothing of the JAX package.
@@ -66,6 +76,28 @@ FA_REPLACES = {
         "src/repro/kernels/flash_attention/flash_attention_bwd.py:48",
     "flash_attention_dkv":
         "src/repro/kernels/flash_attention/flash_attention_bwd.py:97"}
+SSD_SOURCE = "src/repro_torch/csrc/ssd.cu"
+SSD_REPLACES = "src/repro/kernels/ssd/ssd.py:34"
+# (B, S, H, P, G, N, chunk): tests/test_kernels.py SSD_CASES, the reduced
+# mamba2's shape, the main prefill shape and its ragged second batch
+SSD_CASES = [(2, 128, 4, 64, 1, 32, 32), (1, 200, 8, 64, 2, 64, 64),
+             (2, 256, 4, 32, 4, 16, 128), (2, 77, 8, 32, 1, 16, 32)]
+SSD_MAIN = (8, 2048, 64, 64, 1, 128, 256)
+SSD_RAGGED = (4, 1000, 64, 64, 1, 128, 256)
+# SSD: atol 5e-4 (the reference's SSD tests) plus a relative term.  Both
+# versions take the prefix sum cum of dt * A over a chunk in float32 in
+# different orders; at L 256 |cum| reaches a few hundred, where float32
+# keeps ~1e-5 absolute, so exp(cum_i - cum_j) and every y and state term
+# differ by ~1e-4 of their value (rtol 2^-12).  y in bf16 is in addition
+# one bf16 rounding (2^-9 of its value) from that float32 sum (rtol 2^-8).
+SSD_ATOL = 5e-4
+SSD_RTOL = {torch.float32: 2.0 ** -12, torch.bfloat16: 2.0 ** -8}
+MAMBA_PROMPTS = ((8, 2048), (4, 1000))    # (requests, prompt tokens)
+MAMBA_DECODE_STEPS = 64
+# decode after prefill vs prefill of one more token, full width, fp32:
+# the kernel's chunked scan against the plain recurrence over 48 layers
+MAMBA_CONSISTENCY_ATOL = 1e-3
+MAMBA_PROFILE_STEPS = 16
 # H100 SXM data sheet (NVIDIA), dense rates: HBM3 3.35 TB/s; bf16 tensor
 # cores 989 TFLOP/s; float32 outside the tensor cores 67 TFLOP/s (the
 # flash kernels compute float32 FMA for both input types; a float32 input
@@ -528,7 +560,14 @@ def _zero_counts():
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.flash_attention import flash_attention_bwd as fab
     from repro_torch.kernels.paged_attention import paged_attention as pa
+    from repro_torch.kernels.ssd import ssd
     pa.LAUNCHES = fa.LAUNCHES = fab.DQ_LAUNCHES = fab.DKV_LAUNCHES = 0
+    ssd.LAUNCHES = 0
+
+
+def _ssd_count():
+    from repro_torch.kernels.ssd import ssd
+    return ssd.LAUNCHES
 
 
 def phase_train(card):
@@ -768,6 +807,330 @@ def phase_train_profile(tr, step_fn, card):
              "calls": c / TRAIN_PROFILE_STEPS} for n, (t, c) in top]}))
 
 
+# ---------------------------------------------------------------------- SSD
+def ssd_inputs(case, dtype, gen, init=False):
+    """Random SSD scan inputs on the card, dt after softplus and A < 0."""
+    b, s, h, p, g, n = case[:6]
+    dev = gen.device
+    x = torch.randn(b, s, h, p, generator=gen, device=dev).to(dtype)
+    dt = torch.nn.functional.softplus(
+        torch.randn(b, s, h, generator=gen, device=dev))
+    a = -torch.exp(torch.randn(h, generator=gen, device=dev) * 0.5)
+    bm = (torch.randn(b, s, g, n, generator=gen, device=dev) * 0.3).to(dtype)
+    c = (torch.randn(b, s, g, n, generator=gen, device=dev) * 0.3).to(dtype)
+    st = (torch.randn(b, h, p, n, generator=gen, device=dev) if init
+          else None)
+    return x, dt, a, bm, c, st
+
+
+def phase_ssd_kernels(gen):
+    """The SSD kernel vs ``ref.ssd_chunked`` on the same inputs; returns the
+    main shape's bf16 error."""
+    from repro_torch.kernels.ssd.ref import ssd_chunked
+    from repro_torch.kernels.ssd.ssd import ssd_scan
+    cases = ([(f"ssd{i}", c, False) for i, c in enumerate(SSD_CASES)]
+             + [("init", SSD_CASES[1], True), ("ragged", SSD_RAGGED, False),
+                ("raginit", SSD_RAGGED, True), ("main", SSD_MAIN, False)])
+    main_err = None
+    for name, case, init in cases:
+        chunk = case[6]
+        for dtype in (torch.float32, torch.bfloat16):
+            x, dt, a, bm, c, st0 = ssd_inputs(case, dtype, gen, init)
+            y, st = ssd_scan(x, dt, a, bm, c, chunk=chunk, init_state=st0)
+            wy, wst = ssd_chunked(x.float(), dt, a, bm.float(), c.float(),
+                                  chunk=chunk, init_state=st0)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(y).all() and torch.isfinite(st).all()),
+                  f"ssd {name} non-finite")
+            dy, ds = (y.float() - wy).abs(), (st - wst).abs()
+            ey, es = float(dy.max()), float(ds.max())
+            excess = max(
+                float((dy - SSD_ATOL - SSD_RTOL[dtype] * wy.abs()).max()),
+                float((ds - SSD_ATOL - SSD_RTOL[torch.float32]
+                       * wst.abs()).max()))
+            print(f"[3] ssd {name:7s} {str(dtype):14s} B={case[0]} "
+                  f"S={case[1]} H={case[2]} P={case[3]} G={case[4]} "
+                  f"N={case[5]} L={chunk}: y max_abs_err={ey:.3e} state "
+                  f"max_abs_err={es:.3e} (atol {SSD_ATOL} + rtol "
+                  f"{SSD_RTOL[dtype]:g} on y, "
+                  f"{SSD_RTOL[torch.float32]:g} on the state; max |y| "
+                  f"{float(wy.abs().max()):.2f}, max |state| "
+                  f"{float(wst.abs().max()):.2f})")
+            check(excess <= 0,
+                  f"ssd kernel vs plain {name} {dtype}: y {ey}, state {es}")
+            if name == "main" and dtype == torch.bfloat16:
+                main_err = max(ey, es)
+            del x, dt, bm, c, y, st, wy, wst, dy, ds
+    return main_err
+
+
+def mamba_requests(cfg):
+    """MAMBA_PROMPTS batches of token ids in [3, vocab_size), seeded."""
+    rs = np.random.RandomState(0)
+    return [torch.as_tensor(rs.randint(3, cfg.vocab_size, size=(n, s)))
+            for n, s in MAMBA_PROMPTS]
+
+
+def phase_mamba_serving(card):
+    """The mamba serving main path.  Returns its SSD launches, config and
+    bf16 weights (for the profile)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    cfg = get_config("mamba2-1.3b")
+    params = T.init_params(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(0), dtype=torch.bfloat16, device="cuda")
+    n_params = sum(v.numel() for v in _leaves(params))
+    # warm-up: cuBLAS handles, the kernel library, the allocator
+    warm = torch.randint(3, cfg.vocab_size, (2, 300), device="cuda")
+    _, wc = T.prefill(params, cfg, warm, 300)
+    T.decode_step(params, cfg, wc, warm[:, -1:], None)
+    del wc
+    batches = [t.cuda() for t in mamba_requests(cfg)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    per_batch, outs, prefill_launches, decode_launches = [], [], [], 0
+    for toks in batches:
+        b, s = toks.shape
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = T.prefill(params, cfg, toks, s + MAMBA_DECODE_STEPS)
+        nxt = logits[:, :cfg.vocab_size].argmax(-1, keepdim=True)
+        torch.cuda.synchronize()
+        pre_s = time.perf_counter() - t0
+        prefill_launches.append(_ssd_count())
+        _zero_counts()
+        gen_toks, step_ms = [nxt], []
+        for i in range(MAMBA_DECODE_STEPS):
+            t0 = time.perf_counter()
+            logits, cache = T.decode_step(params, cfg, cache, nxt,
+                                          torch.full((b,), s + i,
+                                                     device="cuda"))
+            nxt = logits[:, :cfg.vocab_size].argmax(-1, keepdim=True)
+            gen_toks.append(nxt)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        decode_launches += _ssd_count()
+        _zero_counts()
+        out = torch.cat(gen_toks, 1).cpu()
+        outs.append(out)
+        st = np.asarray(step_ms)
+        per_batch.append({
+            "requests": b, "prompt_tokens": s, "prefill_s": pre_s,
+            "prefill_tokens_per_s": b * s / pre_s,
+            "decode_steps": len(step_ms),
+            "decode_step_ms_p50": float(np.percentile(st, 50)),
+            "decode_step_ms_p90": float(np.percentile(st, 90)),
+            "decode_tokens_per_s": b / float(np.percentile(st, 50)) * 1e3})
+        del cache, logits
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import flash_attention_bwd as fab
+    from repro_torch.kernels.paged_attention import paged_attention as pa
+    check(pa.LAUNCHES == fa.LAUNCHES == fab.DQ_LAUNCHES
+          == fab.DKV_LAUNCHES == 0,
+          "the mamba path launched paged or flash attention")
+    for out in outs:
+        check(out.shape[1] == MAMBA_DECODE_STEPS + 1, "decode length")
+        check(bool(((out >= 0) & (out < cfg.vocab_size)).all()),
+              "a token outside the vocabulary")
+    check(prefill_launches == [cfg.n_layers] * len(batches),
+          f"SSD launches per prefill call {prefill_launches} != "
+          f"{cfg.n_layers}")
+    check(decode_launches == 0, f"decode launched the SSD kernel "
+          f"{decode_launches} times")
+    print("[9] " + json.dumps({
+        "card": card, "model": "mamba2-1.3b (random weights, bf16)",
+        "params": n_params, "requests": sum(n for n, _ in MAMBA_PROMPTS),
+        "batches": per_batch, "max_memory_allocated_gb": peak,
+        "ssd_launches_per_prefill": prefill_launches,
+        "ssd_launches_in_decode": decode_launches,
+        "first_tokens": [o[0, :8].tolist() for o in outs]}))
+    return sum(prefill_launches), cfg, params
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def phase_mamba_consistency(cfg, card):
+    """Full width, fp32 weights: decode_step after prefill of the 1000-token
+    prompts gives the logits of prefill over the 1001 tokens."""
+    from repro_torch.models import transformer as T
+    params = T.init_params(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(1), dtype=torch.float32, device="cuda")
+    toks = mamba_requests(cfg)[1].cuda()
+    extra = torch.randint(3, cfg.vocab_size, (toks.shape[0], 1),
+                          generator=torch.Generator(device="cuda")
+                          .manual_seed(2), device="cuda")
+    s = toks.shape[1]
+    _, cache = T.prefill(params, cfg, toks, s + 1, cache_dtype=torch.float32)
+    got, _ = T.decode_step(params, cfg, cache, extra,
+                           torch.full((toks.shape[0],), s, device="cuda"))
+    del cache
+    want, _ = T.prefill(params, cfg, torch.cat([toks, extra], 1), s + 1,
+                        cache_dtype=torch.float32)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    print(f"[9] mamba2-1.3b fp32, decode after prefill of {s} tokens vs "
+          f"prefill of {s + 1}: logits max_abs_err={err:.3e} "
+          f"atol={MAMBA_CONSISTENCY_ATOL} (max |logit| "
+          f"{float(want.abs().max()):.3f}) [{card}]")
+    check(bool(torch.isfinite(got).all()), "non-finite decode logits")
+    check(err <= MAMBA_CONSISTENCY_ATOL, f"decode vs prefill: {err}")
+
+
+def phase_mamba_card_vs_cpu():
+    """Reduced mamba2, fp32: prefill and 8 teacher-forced decode steps from
+    the same weights on the CPU (plain scan) and the card (the kernel)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm
+    from repro_torch.models import transformer as T
+    cfg = get_config("mamba2-1.3b").reduced()
+    params = T.init_params(cfg, generator=torch.Generator().manual_seed(1),
+                           dtype=torch.float32, device="cpu")
+    toks = torch.as_tensor(np.random.RandomState(3).randint(
+        0, cfg.vocab_size, size=(3, 53)))
+    s = 45
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        p = ssm.cast(params, dev, torch.float32)
+        logits, cache = T.prefill(p, cfg, toks[:, :s].to(dev), 53,
+                                  cache_dtype=torch.float32)
+        out = [logits.cpu()]
+        for t in range(s, 53):
+            logits, cache = T.decode_step(p, cfg, cache,
+                                          toks[:, t:t + 1].to(dev), None)
+            out.append(logits.cpu())
+        runs[dev] = (out, {k: v.cpu() for k, v in cache["mamba"].items()})
+    (cl, cc), (gl, gc) = runs["cpu"], runs["cuda"]
+    v = cfg.vocab_size
+    for i, (a, g) in enumerate(zip(cl, gl)):
+        check(torch.equal(a[:, :v].argmax(-1), g[:, :v].argmax(-1)),
+              f"mamba greedy tokens differ at step {i}")
+    lerr = max(float((a - g).abs().max()) for a, g in zip(cl, gl))
+    cerr = max(float((cc[k] - gc[k]).abs().max()) for k in cc)
+    print(f"[6] reduced mamba2 fp32, prefill + 8 teacher-forced decode "
+          f"steps: tokens identical, logits max_abs_err={lerr:.3e}, caches "
+          f"max_abs_err={cerr:.3e} atol=1e-4")
+    check(lerr <= 1e-4 and cerr <= 1e-4, f"mamba card vs cpu: {lerr} {cerr}")
+
+
+def ssd_flops_bytes(case, dtype):
+    """Visible work of the SSD scan (the lower triangles of C B^T and of
+    the scores times x, the off-diagonal C . state and the state update,
+    per chunk of real positions) and its least traffic (x, B, C, dt read
+    once, y and the final state written once)."""
+    b, s, h, p, g, n, chunk = case
+    flops = 0
+    for c0 in range(0, s, chunk):
+        m = min(chunk, s - c0)
+        flops += 2 * (m * (m + 1) // 2) * (n + p) + 4 * m * p * n
+    flops *= b * h
+    e = torch.finfo(dtype).bits // 8
+    nbytes = (2 * b * s * h * p * e + 2 * b * s * g * n * e + b * s * h * 4
+              + h * 4 + b * h * p * n * 4)
+    return flops, nbytes
+
+
+def phase_ssd_timing(gen, card):
+    """The SSD kernel at the main prefill shape, L2 flushed: its time, its
+    bound and its plain version's time (no PyTorch call computes the
+    scan, so there is no library yardstick)."""
+    from repro_torch.kernels.ssd import ssd as ssd_k
+    from repro_torch.kernels.ssd.ref import ssd_chunked
+    chunk = SSD_MAIN[6]
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    res = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        x, dt, a, bm, c, _ = ssd_inputs(SSD_MAIN, dtype, gen)
+        before = ssd_k.LAUNCHES
+        k_ms = time_ms(lambda: ssd_k.ssd_scan(x, dt, a, bm, c, chunk=chunk),
+                       10, flush)
+        ssd_k.LAUNCHES = before        # timing launches are not main-path
+        p_ms = time_ms(lambda: ssd_chunked(x, dt, a, bm, c, chunk=chunk), 3,
+                       flush)
+        flops, nbytes = ssd_flops_bytes(SSD_MAIN, dtype)
+        t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        res[dtype] = {"ms": k_ms, "plain_ms": p_ms,
+                      "bound_ms": max(t_ops, t_bytes),
+                      "bound_by": "operations" if t_ops >= t_bytes
+                      else "bytes", "library_ms": None}
+        print(f"[7] ssd {str(dtype):14s} B={SSD_MAIN[0]} S={SSD_MAIN[1]} "
+              f"H={SSD_MAIN[2]} P={SSD_MAIN[3]} G={SSD_MAIN[4]} "
+              f"N={SSD_MAIN[5]} L={chunk}: kernel_ms={k_ms:.4f} "
+              f"plain_ms={p_ms:.4f} bound_ms={res[dtype]['bound_ms']:.4f} "
+              f"(flops {flops}, bytes {nbytes}; {flops / k_ms / 1e9:.2f} "
+              f"TFLOP/s) [{card}]")
+        del x, dt, a, bm, c
+    return res
+
+
+def phase_mamba_profile(cfg, params, card):
+    """One full-batch prefill call (8 x 2048) and MAMBA_PROFILE_STEPS
+    steady decode steps after it, each timed untraced and then traced."""
+    from repro_torch.models import transformer as T
+    toks = mamba_requests(cfg)[0].cuda()
+    b, s = toks.shape
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+
+    def prefill():
+        return T.prefill(params, cfg, toks, s + 64)
+
+    def decode(cache, n):
+        nxt = toks[:, -1:]
+        for i in range(n):
+            logits, cache = T.decode_step(params, cfg, cache, nxt, None)
+            nxt = logits[:, :cfg.vocab_size].argmax(-1, keepdim=True)
+        return cache
+
+    for what, steps in (("prefill", 1), ("decode", MAMBA_PROFILE_STEPS)):
+        _, cache = prefill()
+        cache = decode(cache, 2)                    # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if what == "prefill":
+            _, cache = prefill()
+        else:
+            cache = decode(cache, steps)
+        torch.cuda.synchronize()
+        untraced = (time.perf_counter() - t0) * 1e3 / steps
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            if what == "prefill":
+                _, cache = prefill()
+            else:
+                cache = decode(cache, steps)
+            torch.cuda.synchronize()
+            traced = (time.perf_counter() - t0) * 1e3 / steps
+        del cache
+        kernels, busy, by_name = _profile_summary(prof, steps)
+        total = sum(t for t, _ in by_name.values())
+        ssd_ms = sum(t for n, (t, _) in by_name.items() if "ssd_kernel" in n)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+        print(f"[8] mamba {what} " + json.dumps({
+            "card": card, "model": "mamba2-1.3b (random weights, bf16)",
+            "batch": b, "prompt_tokens": s, "calls": steps,
+            "wall_ms_untraced": untraced, "wall_ms_traced": traced,
+            "device_busy_ms": busy,
+            "device_idle_share_untraced": 1 - busy / untraced,
+            "device_idle_share_traced": 1 - busy / traced,
+            "kernels_per_call": len(kernels) / steps,
+            "ssd_ms_per_call": ssd_ms / steps,
+            "ssd_share_of_kernel_time": ssd_ms / total,
+            "top_kernels_ms_per_call": [
+                {"name": n[:80], "ms": t / steps, "calls": c / steps}
+                for n, (t, c) in top]}))
+
+
 def build_report(build):
     """Print each kernel's registers and spills from nvcc's ptxas report."""
     for src in sorted(build.sources()):
@@ -776,10 +1139,11 @@ def build_report(build):
             m = re.search(r"Compiling entry function '(\S+)'", line)
             if m:
                 k = re.search(r"\d+([a-z]+(?:_[a-z]+)*_kernel)"
-                              r"I(f|13__nv_bfloat16)Li(\d+)E", m.group(1))
+                              r"I(f|13__nv_bfloat16)((?:Li\d+E)+)",
+                              m.group(1))
                 dtype = k and ("float" if k.group(2) == "f" else "bf16")
-                name = (f"{k.group(1)}<{dtype},{k.group(3)}>" if k
-                        else m.group(1))
+                ints = k and ",".join(re.findall(r"\d+", k.group(3)))
+                name = f"{k.group(1)}<{dtype},{ints}>" if k else m.group(1)
             elif name and "spill" in line:
                 spill = line.strip()
             elif name and "registers" in line:
@@ -813,17 +1177,26 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     pa_err = phase_kernels(pa, paged_attention_ref, gen)
     fa_err = phase_flash_kernels(gen)
+    ssd_err = phase_ssd_kernels(gen)
     pa_launches, cfg, params = phase_main_path(card)
     check(all(n == 0 for n in _flash_counts().values()),
           "the serving path launched a flash-attention kernel")
+    check(_ssd_count() == 0, "the serving path launched the SSD kernel")
     fa_launches, trainer, step_fn = phase_train(card)
+    check(_ssd_count() == 0, "the training path launched the SSD kernel")
+    ssd_launches, mcfg, mparams = phase_mamba_serving(card)
+    phase_mamba_consistency(mcfg, card)
     phase_card_vs_cpu()
     phase_train_card_vs_cpu()
+    phase_mamba_card_vs_cpu()
     timing = phase_timing(pa, paged_attention_ref, gen, card)
     fa_timing = phase_flash_timing(gen, card)
+    ssd_timing = phase_ssd_timing(gen, card)
     phase_decode_profile(cfg, params, card)
     del params
     phase_train_profile(trainer, step_fn, card)
+    del trainer, step_fn
+    phase_mamba_profile(mcfg, mparams, card)
 
     k_ms, p_ms, bound = timing[torch.bfloat16]
     kernels = [{
@@ -838,6 +1211,10 @@ def main() -> int:
             "replaces": replaces, "launches": fa_launches[name],
             "max_abs_err": fa_err[name],
             **fa_timing[torch.bfloat16][name]})
+    kernels.append({
+        "name": "ssd", "route": "cuda", "source": SSD_SOURCE,
+        "replaces": SSD_REPLACES, "launches": ssd_launches,
+        "max_abs_err": ssd_err, **ssd_timing[torch.bfloat16]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,8 +5,15 @@ init_params`` returns, with every leaf already converted to a numpy array
 by the caller, and builds the port's tensors under the same keys in the
 same ``x @ W`` layout: ``embed.table``, ``final_norm``, the stacked
 ``layers.{norm1, attn.{wq,wk,wv,wo[,bq,bk,bv]}, norm2,
-ffn.{w_gate,w_up,w_down}}`` and ``lm_head`` when the embeddings are
-untied.  No transposes are needed: both packages multiply ``x @ W``.
+ffn.{w_gate,w_up,w_down}}`` or, for a mamba model, ``layers.{norm,
+mamba.{wz,wx,wB,wC,wdt,conv_w,conv_b,dt_bias,A_log,D,norm,wo}}``, and
+``lm_head`` when the embeddings are untied.  No transposes are needed:
+both packages multiply ``x @ W``.
+
+Every leaf is cast to ``dtype`` except the SSM's ``dt_bias``, ``A_log``
+and ``D``, which stay float32 whatever ``dtype`` is, as the reference's
+``mamba_init`` keeps them: rounding ``A_log`` or ``dt_bias`` to bf16
+would move every decay rate of the scan.
 """
 from __future__ import annotations
 
@@ -16,20 +23,22 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.models.ssm import FLOAT32_LEAVES
 
 
 def from_reference(tree: Dict[str, Any], *, dtype=torch.float32,
                    device=None) -> Dict[str, Any]:
     device = resolve_device(device)
 
-    def conv(x):
+    def conv(x, name=""):
         if isinstance(x, dict):
-            return {k: conv(v) for k, v in x.items()}
+            return {k: conv(v, k) for k, v in x.items()}
         if isinstance(x, (tuple, list)):
-            raise TypeError("from_reference takes uniform attention models "
-                            "(hybrid slot tuples wait for the SSM slice)")
+            raise TypeError("from_reference takes uniform models (hybrid "
+                            "slot tuples wait for the zamba2 slice)")
         # via float32: numpy has no bfloat16 of its own
-        return torch.tensor(np.asarray(x, np.float32)).to(
-            device=device, dtype=dtype)
+        t = torch.tensor(np.asarray(x, np.float32))
+        return t.to(device=device, dtype=torch.float32
+                    if name in FLOAT32_LEAVES else dtype)
 
     return conv(tree)

@@ -1,16 +1,19 @@
-"""Model assembly: parameter init, the full-sequence forward, the LM head
-and the training loss.
+"""Model assembly: parameter init, the full-sequence forward, the LM head,
+the training loss and the dense-cache serving path of mamba models.
 
-Twin of ``repro.models.transformer`` for uniform dense attention
-architectures.  ``init_params`` builds the reference's key tree with the
-same shapes and init scales (layers stacked on a leading L axis); the
+Twin of ``repro.models.transformer`` for uniform architectures: dense
+attention (``block_pattern == ("attn",)``) and Mamba-2
+(``("mamba",)``).  ``init_params`` builds the reference's key tree with
+the same shapes and init scales (layers stacked on a leading L axis); the
 random numbers come from a ``torch.Generator`` and differ from JAX's.
 ``forward`` runs the layers in a Python loop over views of the stacked
-parameters (the reference's ``lax.scan``), and its attention goes through
-``attention.attend_chunked``: the flash-attention kernels on the card.
-The dense-cache ``prefill``/``decode_step``, ``remat`` other than
-``"none"``, MoE, SSM and encoder-decoder models belong to later slices and
-raise here.
+parameters (the reference's ``lax.scan``).  Attention goes through
+``attention.attend_chunked`` (the flash-attention kernels on the card),
+the mamba blocks' scan through ``kernels/ssd/ops.ssd`` (the SSD kernel on
+the card).  ``prefill`` and ``decode_step`` serve mamba models through
+their O(1) decode cache; the dense attention cache (ROADMAP queue 1 item
+9), ``remat`` other than ``"none"``, hybrid, MoE and encoder-decoder
+models belong to later slices and raise here.
 """
 from __future__ import annotations
 
@@ -22,7 +25,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import attention, layers, mlp
+from repro_torch.models import attention, layers, mlp, ssm
 
 
 def _uniform(cfg: ModelConfig) -> bool:
@@ -34,9 +37,9 @@ def _is_moe_layer(cfg: ModelConfig) -> bool:
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if not _uniform(cfg) or cfg.block_pattern[0] != "attn":
+    if not _uniform(cfg) or cfg.block_pattern[0] not in ("attn", "mamba"):
         raise NotImplementedError(
-            f"{cfg.arch_id}: SSM and hybrid models wait for the SSM slice")
+            f"{cfg.arch_id}: hybrid models wait for ROADMAP queue 1 item 18")
     if _is_moe_layer(cfg):
         raise NotImplementedError(
             f"{cfg.arch_id}: MoE layers wait for the MoE/SSM slice")
@@ -88,17 +91,16 @@ def _stack(trees):
     return torch.stack(trees)
 
 
-def _to(tree, device, dtype):
-    if isinstance(tree, dict):
-        return {k: _to(v, device, dtype) for k, v in tree.items()}
-    return tree.to(device=device, dtype=dtype)
+def _mamba_layer(gen, cfg: ModelConfig) -> Dict[str, Any]:
+    return {"norm": _norm(cfg), "mamba": ssm.mamba_init(gen, cfg)}
 
 
 def init_params(cfg: ModelConfig, *, generator: torch.Generator,
                 dtype=torch.bfloat16, device=None) -> Dict[str, Any]:
     """Parameter tree with the reference ``init_params`` key tree and
     shapes, layers stacked on a leading axis.  Draws in float32 on the
-    generator's device, then casts to ``dtype`` on ``device``."""
+    generator's device, then casts to ``dtype`` on ``device`` (the SSM's
+    ``dt_bias``, ``A_log`` and ``D`` stay float32, as in the reference)."""
     device = resolve_device(device)
     _check_supported(cfg)
     p: Dict[str, Any] = {
@@ -108,9 +110,10 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator,
     }
     if not cfg.tie_embeddings:
         p["lm_head"] = _dense(generator, cfg.d_model, cfg.padded_vocab)
-    p["layers"] = _stack([_attn_layer(generator, cfg)
+    layer = _mamba_layer if cfg.block_pattern[0] == "mamba" else _attn_layer
+    p["layers"] = _stack([layer(generator, cfg)
                           for _ in range(cfg.n_layers)])
-    return _to(p, device, dtype)
+    return ssm.cast(p, device, dtype)
 
 
 def lm_logits(params, cfg: ModelConfig, hidden):
@@ -147,16 +150,24 @@ def _attn_block_fwd(p, cfg: ModelConfig, x, *, causal: bool, q_offset: int,
     return x + mlp.mlp_apply(p["ffn"], cfg, h), (k, v)
 
 
+def _mamba_block_fwd(p, cfg: ModelConfig, x):
+    h = layers.norm_apply(p["norm"], x, cfg.norm_eps)
+    out, final_cache = ssm.mamba_apply(p["mamba"], cfg, h)
+    return x + out, final_cache
+
+
 def forward(params, cfg: ModelConfig, tokens, *, remat: str = "none",
             collect_kv: bool = False, compute_dtype=None,
             fused_attention: bool = False):
     """Full-sequence forward.  tokens (B, S) integer.
 
     Returns (hidden (B,S,D), aux_loss, kv_stack_or_None, (None, None,
-    None)) as the reference does for a dense decoder.  ``collect_kv``:
-    per-layer (k, v) stacked to (L, B, S, K, hd).  ``compute_dtype``:
-    activation dtype (params stay float32 masters, weights cast at use
-    sites); None keeps the param dtype.
+    mamba_states_or_None)) as the reference does for a decoder-only model.
+    ``collect_kv``: per-layer (k, v) stacked to (L, B, S, K, hd), or for a
+    mamba model each layer's final {"conv" (L,B,K-1,C), "ssm" (L,B,H,P,N)
+    float32} cache.  ``compute_dtype``: activation dtype (params stay
+    float32 masters, weights cast at use sites); None keeps the param
+    dtype.
     """
     _check_supported(cfg)
     if remat != "none":
@@ -166,6 +177,17 @@ def forward(params, cfg: ModelConfig, tokens, *, remat: str = "none",
     x = layers.embed_lookup(params["embed"], tokens.long())
     if compute_dtype is not None:
         x = x.to(compute_dtype)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.block_pattern[0] == "mamba":
+        states = []
+        for lp in _unstack(params["layers"], cfg.n_layers):
+            x, fc = _mamba_block_fwd(lp, cfg, x)
+            if collect_kv:
+                states.append(fc)
+        x = layers.norm_apply(params["final_norm"], x, cfg.norm_eps)
+        ms = ({k: torch.stack([st[k] for st in states]) for k in states[0]}
+              if collect_kv else None)
+        return x, aux, None, (None, None, ms)
     ks, vs = [], []
     for lp in _unstack(params["layers"], cfg.n_layers):
         x, (k, v) = _attn_block_fwd(lp, cfg, x, causal=True, q_offset=0,
@@ -175,7 +197,6 @@ def forward(params, cfg: ModelConfig, tokens, *, remat: str = "none",
             vs.append(v)
     x = layers.norm_apply(params["final_norm"], x, cfg.norm_eps)
     kv = (torch.stack(ks), torch.stack(vs)) if collect_kv else None
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x, aux, kv, (None, None, None)
 
 
@@ -225,3 +246,82 @@ def loss_fn(params, cfg: ModelConfig, batch, *, remat: str = "none",
     loss, n = xent_loss(params, cfg, hidden, labels, mask)
     total = loss + aux_weight * aux
     return total, {"loss": loss, "aux_loss": aux, "tokens": n}
+
+
+# ================================================================= caches
+_DENSE_CACHE = ("the dense attention cache (prefill/decode_step of "
+                "attention models) waits for ROADMAP queue 1 item 9; the "
+                "port serves attention models through serve/engine.py")
+
+
+def _mamba_only(cfg: ModelConfig) -> None:
+    _check_supported(cfg)
+    if cfg.block_pattern[0] != "mamba":
+        raise NotImplementedError(f"{cfg.arch_id}: {_DENSE_CACHE}")
+
+
+def decode_cache_len(cfg: ModelConfig, max_len: int) -> int:
+    """Physical KV length: SWA archs cap at their window (ring buffer)."""
+    if cfg.swa_window:
+        return min(max_len, cfg.swa_window)
+    if cfg.family == "hybrid":
+        return min(max_len, 4096)
+    return max_len
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
+               dtype=torch.bfloat16, device=None) -> Dict:
+    """Decode state, stacked on the layer axis: for a mamba model
+    {"mamba": {"conv" (L,B,K-1,C) in ``dtype``, "ssm" (L,B,H,P,N)
+    float32}}; its size does not depend on ``max_len``."""
+    _mamba_only(cfg)
+    one = ssm.mamba_cache_init(cfg, batch, dtype=dtype,
+                               device=resolve_device(device))
+    return {"mamba": {k: v.expand((cfg.n_layers,) + v.shape).clone()
+                      for k, v in one.items()}}
+
+
+def _mamba_block_decode(p, cfg: ModelConfig, x, cache):
+    h = layers.norm_apply(p["norm"], x, cfg.norm_eps)
+    out, cache = ssm.mamba_decode(p["mamba"], cfg, h, cache)
+    return x + out, cache
+
+
+def _embed_tokens_decode(params, cfg: ModelConfig, tokens, pos):
+    """Token embeddings; the reference's absolute-position branch belongs
+    to the encoder-decoder slice, which ``_check_supported`` refuses."""
+    return layers.embed_lookup(params["embed"], tokens.long())
+
+
+@torch.no_grad()
+def decode_step(params, cfg: ModelConfig, cache: Dict, tokens, pos):
+    """One decode step.  tokens (B,1) integer; pos (B,) current positions
+    (unused by a mamba model).
+
+    Returns (logits (B,V) float32, cache).  The cache is updated in place
+    and returned: the port's form of the reference's donated cache."""
+    _mamba_only(cfg)
+    x = _embed_tokens_decode(params, cfg, tokens, pos)
+    mc = cache["mamba"]
+    for i, lp in enumerate(_unstack(params["layers"], cfg.n_layers)):
+        x, new = _mamba_block_decode(
+            lp, cfg, x, {"conv": mc["conv"][i], "ssm": mc["ssm"][i]})
+        mc["conv"][i].copy_(new["conv"])
+        mc["ssm"][i].copy_(new["ssm"])
+    x = layers.norm_apply(params["final_norm"], x, cfg.norm_eps)
+    return lm_logits(params, cfg, x)[:, 0], cache
+
+
+@torch.no_grad()
+def prefill(params, cfg: ModelConfig, tokens, max_len: int, *,
+            cache_dtype=torch.bfloat16):
+    """Run the full prompt, build the decode cache, return last-token
+    logits.  tokens (B, S).  Returns (logits (B,V) float32, cache): the
+    conv states in ``cache_dtype``, the SSM states float32, as
+    ``init_cache`` lays them out."""
+    _mamba_only(cfg)
+    hidden, _, _, (_, _, states) = forward(params, cfg, tokens,
+                                           collect_kv=True)
+    cache = {"mamba": {"conv": states["conv"].to(cache_dtype),
+                       "ssm": states["ssm"].float()}}
+    return lm_logits(params, cfg, hidden[:, -1:])[:, 0], cache

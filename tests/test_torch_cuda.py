@@ -13,7 +13,11 @@ float32 on the same bf16 inputs.  The bf16 flash-attention gradients are
 held to atol 5e-4 plus rtol 2^-8: the kernels compute in float32 from the
 same bf16 values, so they differ from the plain version by summation order
 and by the one bf16 rounding of the stored gradient, at most 2^-9 of its
-value.
+value.  The SSD scan kernel: y and the final state at atol 5e-4 (the
+reference's SSD tests) plus rtol 2^-12, because the two versions sum the
+prefix of dt * A over a chunk in float32 in other orders, and at L 256 its
+rounding moves each decay by ~1e-4 of its value; in bf16, y at rtol 2^-8
+instead, for the one bf16 rounding of each stored y.
 """
 import numpy as np
 import pytest
@@ -30,6 +34,10 @@ from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
 from repro_torch.kernels.paged_attention import ops
 from repro_torch.kernels.paged_attention import paged_attention as pa
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+from repro_torch.kernels.ssd import ops as ssd_ops
+from repro_torch.kernels.ssd import ssd as ssd_k
+from repro_torch.kernels.ssd.ref import ssd_chunked
+from repro_torch.models import transformer as T
 from repro_torch.models.transformer import init_params
 from repro_torch.serve import paged_model as P
 from repro_torch.serve.engine import ServingEngine
@@ -299,3 +307,124 @@ def test_trainer_on_the_card_matches_the_cpu(card, tmp_path):
             assert fa.LAUNCHES - before == 3 * cfg.n_layers
         runs[str(dev)] = [m["loss"] for m in t.metrics_log]
     np.testing.assert_allclose(runs["cuda"], runs["cpu"], atol=1e-4)
+
+
+# =================================================================== SSD ===
+SSD_CASES = [                      # b, s, h, p, g, n, chunk
+    (2, 128, 4, 64, 1, 32, 32),    # tests/test_kernels.py SSD_CASES
+    (1, 200, 8, 64, 2, 64, 64),
+    (2, 256, 4, 32, 4, 16, 128),
+    (2, 77, 8, 32, 1, 16, 32),     # the reduced model's shape, ragged
+    (1, 1000, 64, 64, 1, 128, 256),  # the main path's, ragged
+]
+SSD_IDS = [f"ssd{i}" for i in range(len(SSD_CASES))]
+
+
+def _ssd_inputs(case, seed, dtype, card):
+    b, s, h, p, g, n, _ = case
+    rs = np.random.RandomState(seed)
+    f = lambda a: torch.tensor(a.astype(np.float32)).to(card)  # noqa: E731
+    x = f(rs.randn(b, s, h, p)).to(dtype)
+    dt = f(np.logaddexp(rs.randn(b, s, h), 0.0))
+    A = f(-np.exp(rs.randn(h) * 0.5))
+    Bm = f(rs.randn(b, s, g, n) * 0.3).to(dtype)
+    C = f(rs.randn(b, s, g, n) * 0.3).to(dtype)
+    init = f(rs.randn(b, h, p, n))
+    return x, dt, A, Bm, C, init
+
+
+def _ssd_close(got, want, dtype):
+    (y, st), (wy, wst) = got, want
+    torch.testing.assert_close(st, wst, atol=5e-4, rtol=2.0 ** -12)
+    rtol = 2.0 ** -8 if dtype == "bfloat16" else 2.0 ** -12
+    torch.testing.assert_close(y.float(), wy.float(), atol=5e-4, rtol=rtol)
+
+
+@pytest.mark.parametrize("with_init", [False, True], ids=["zeros", "init"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", SSD_CASES, ids=SSD_IDS)
+def test_ssd_kernel_matches_plain_version(card, case, dtype, with_init):
+    x, dt, A, Bm, C, init = _ssd_inputs(case, 4, getattr(torch, dtype), card)
+    init = init if with_init else None
+    before = ssd_k.LAUNCHES
+    got = ssd_ops.ssd(x, dt, A, Bm, C, chunk=case[-1], init_state=init)
+    assert ssd_k.LAUNCHES == before + 1
+    want = ssd_chunked(x.float(), dt, A, Bm.float(), C.float(),
+                       chunk=case[-1], init_state=init)
+    torch.cuda.synchronize()
+    assert got[0].dtype == x.dtype and got[1].dtype == torch.float32
+    _ssd_close(got, want, dtype)
+
+
+def test_ssd_kernel_reads_the_model_layout_through_strides(card):
+    """x, B and C as views split out of one (B, S, H*P + 2*G*N) tensor, dt
+    as a transposed view: no copy, the same result."""
+    b, s, h, p, g, n, chunk = SSD_CASES[3]
+    rs = np.random.RandomState(5)
+    xbc = torch.tensor(rs.randn(b, s, h * p + 2 * g * n).astype(np.float32),
+                       device=card)
+    xp, Bp, Cp = torch.split(xbc, [h * p, g * n, g * n], dim=-1)
+    x, Bm, C = (xp.reshape(b, s, h, p), Bp.reshape(b, s, g, n),
+                Cp.reshape(b, s, g, n))
+    dt = torch.tensor(np.logaddexp(rs.randn(b, h, s), 0.0).astype(
+        np.float32), device=card).transpose(1, 2)
+    A = -torch.rand(h, device=card) - 0.1
+    got = ssd_k.ssd_scan(x, dt, A, Bm, C, chunk=chunk)
+    want = ssd_chunked(*(t.contiguous() for t in (x, dt, A, Bm, C)),
+                       chunk=chunk)
+    torch.cuda.synchronize()
+    _ssd_close(got, want, "float32")
+
+
+def test_ssd_wrapper_rejects_what_the_kernel_does_not_take(card):
+    x, dt, A, Bm, C, init = _ssd_inputs(SSD_CASES[0], 1, torch.float32,
+                                        card)
+    before = ssd_k.LAUNCHES
+    with pytest.raises(ValueError, match="not built"):
+        ssd_k.ssd_scan(x, dt, A, Bm, C, chunk=48)
+    with pytest.raises(ValueError, match="not built"):
+        ssd_k.ssd_scan(x[..., :48], dt, A, Bm, C, chunk=32)
+    with pytest.raises(TypeError):
+        ssd_k.ssd_scan(x.half(), dt, A, Bm.half(), C.half(), chunk=32)
+    with pytest.raises(TypeError):
+        ssd_k.ssd_scan(x, dt.bfloat16(), A, Bm, C, chunk=32)
+    with pytest.raises(ValueError, match="CUDA device"):
+        ssd_k.ssd_scan(x, dt, A.cpu(), Bm, C, chunk=32)
+    with pytest.raises(ValueError, match="init_state"):
+        ssd_k.ssd_scan(x, dt, A, Bm, C, chunk=32, init_state=init[:1])
+    with pytest.raises(NotImplementedError, match="item 19"):
+        ssd_ops.ssd(x.requires_grad_(True), dt, A, Bm, C, chunk=32)
+    assert ssd_k.LAUNCHES == before
+
+
+def test_mamba_serving_on_the_card_matches_the_cpu(card):
+    """Reduced mamba2, fp32: prefill and 8 teacher-forced decode steps on
+    the card (the SSD kernel, once per layer per prefill) and on the CPU
+    (the plain scan) agree: logits and caches atol 1e-4, tokens equal."""
+    cfg = get_config("mamba2-1.3b").reduced()
+    params = _params(cfg, "cpu")
+    toks = torch.tensor(np.random.RandomState(6).randint(
+        0, cfg.vocab_size, size=(3, 45)))
+    runs = {}
+    for dev in ("cpu", card):
+        p = T.ssm.cast(params, dev, torch.float32)
+        before = ssd_k.LAUNCHES
+        logits, cache = T.prefill(p, cfg, toks[:, :37].to(dev), 45,
+                                  cache_dtype=torch.float32)
+        out = [logits.cpu()]
+        for t in range(37, 45):
+            logits, cache = T.decode_step(p, cfg, cache,
+                                          toks[:, t:t + 1].to(dev),
+                                          torch.full((3,), t, device=dev))
+            out.append(logits.cpu())
+        if dev == card:
+            assert ssd_k.LAUNCHES - before == cfg.n_layers
+        runs[str(dev)] = (out, {k: v.cpu() for k, v in
+                                cache["mamba"].items()})
+    for a, g in zip(runs["cpu"][0], runs["cuda"][0]):
+        torch.testing.assert_close(g, a, atol=1e-4, rtol=0)
+        assert torch.equal(g[:, :cfg.vocab_size].argmax(-1),
+                           a[:, :cfg.vocab_size].argmax(-1))
+    for k in ("conv", "ssm"):
+        torch.testing.assert_close(runs["cuda"][1][k], runs["cpu"][1][k],
+                                   atol=1e-4, rtol=0)

@@ -135,7 +135,7 @@ def test_xent_loss_chunking_matches_reference(s_len):
     assert tn.item() == float(jn)
 
 
-@pytest.mark.parametrize("arch", ["mamba2-1.3b", "granite-moe-1b-a400m",
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "granite-moe-1b-a400m",
                                   "whisper-medium"])
 def test_forward_raises_for_models_of_later_slices(arch):
     cfg = get_config(arch).reduced()
