@@ -18,25 +18,28 @@ and a mamba decode step.  Phases, in order:
      registers, shared memory and spills;
   3. kernels vs plain versions on the card (fp32 and bf16): paged
      attention with and without the split of rows over several blocks;
-     the flash-attention forward, dq and dkv kernels on the reference's
-     test cases and the training shape, and ``mha_fused``'s gradient
-     against autograd of the plain forward; the SSD scan on the
+     the flash-attention forward, dq and dkv kernels (bf16 forward and dkv
+     on the tensor cores, float32 on FMA) on the reference's test cases,
+     head dims 32, 64 and 128 and the training shape, and ``mha_fused``'s
+     gradient against autograd of the plain forward; the SSD scan on the
      reference's cases, the reduced and the main mamba shapes, a ragged S
      and an initial state;
   4. serving main path: 24 requests through the engine at full width, bf16;
   5. training main path: 20 steps of ``Trainer`` at full width, sequence
      2048, batch 8, fp32 masters with bf16 compute, a checkpoint every 5
-     steps and an injected failure at step 12 (one restart);
+     steps and an injected failure at step 12 (one restart); its forward
+     and dkv launches all on the tensor-core kernels;
   9. mamba serving main path: 12 requests of full-width mamba2-1.3b, bf16
      (8 prompts of 2048 tokens, 4 of 1000), two ``prefill`` calls and 64
      greedy ``decode_step``s for each; then, with fp32 weights, decode
      after a 1000-token prefill against the prefill of 1001 tokens;
   6. card vs CPU on the reduced models, fp32: decode_step_paged, 3
-     ``Trainer`` steps from the same weights, mamba2 prefill and 8 decode
-     steps;
-  7. kernel timing at the main paths' shapes, with each kernel's bound and
-     a PyTorch library call as yardstick where one computes the same
-     function;
+     ``Trainer`` steps from the same weights (its forward and dkv launches
+     all on the float32 FMA kernels), mamba2 prefill and 8 decode steps;
+  7. kernel timing at the main paths' shapes (median, p10 and p90), with
+     each kernel's bound and a PyTorch library call as yardstick where one
+     computes the same function (for flash attention also SDPA's backward
+     alone);
   8. profiles: where a steady decode step (every slot full), a training
      step, a mamba prefill call and a mamba decode step spend their time
      (host wall untraced and traced, device busy time, the device's idle
@@ -69,6 +72,19 @@ PA_SOURCE = "src/repro_torch/csrc/paged_attention.cu"
 PA_REPLACES = "src/repro/kernels/paged_attention/paged_attention.py:47"
 FA_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
 FA_BWD_SOURCE = "src/repro_torch/csrc/flash_attention_bwd.cu"
+# the kernel each dtype runs, by the kernels line's name
+VARIANTS = {
+    "paged_attention": {
+        "bfloat16": "paged_attention_kernel, combine_kernel (float32 FMA)",
+        "float32": "paged_attention_kernel, combine_kernel (float32 FMA)"},
+    "flash_attention_fwd": {"bfloat16": "fa_fwd_wgmma_kernel (wgmma, TMA)",
+                            "float32": "fa_fwd_kernel (float32 FMA)"},
+    "flash_attention_dq": {"bfloat16": "fa_dq_kernel (float32 FMA)",
+                           "float32": "fa_dq_kernel (float32 FMA)"},
+    "flash_attention_dkv": {"bfloat16": "fa_dkv_wgmma_kernel (wgmma, TMA)",
+                            "float32": "fa_dkv_kernel (float32 FMA)"},
+    "ssd": {"bfloat16": "ssd_kernel (float32 FMA)",
+            "float32": "ssd_kernel (float32 FMA)"}}
 FA_REPLACES = {
     "flash_attention_fwd":
         "src/repro/kernels/flash_attention/flash_attention.py:36",
@@ -100,15 +116,18 @@ MAMBA_CONSISTENCY_ATOL = 1e-3
 MAMBA_PROFILE_STEPS = 16
 # H100 SXM data sheet (NVIDIA), dense rates: HBM3 3.35 TB/s; bf16 tensor
 # cores 989 TFLOP/s; float32 outside the tensor cores 67 TFLOP/s (the
-# flash kernels compute float32 FMA for both input types; a float32 input
-# held to atol 2e-5 cannot go through TF32)
+# float32 flash kernels compute float32 FMA: a float32 input held to atol
+# 2e-5 cannot go through TF32)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 ATOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # flash-attention gradients: float32 atol 5e-4 (the reference's backward
-# tests); bf16 against the float32 plain version on the same bf16 values:
-# atol 5e-4 plus rtol 2^-8, since the kernels compute in float32 and round
-# each stored gradient to bf16 once (at most 2^-9 of its value)
+# tests).  bf16, against the float32 plain version on the same bf16
+# values: dq at atol 5e-4 plus rtol 2^-8 (its kernel computes in float32
+# and rounds the stored gradient to bf16 once, at most 2^-9 of its value);
+# dk and dv within ``ref.bf16_dkv_bound``, the elementwise bound implied by
+# the tensor-core dkv kernel's rounding of P and dS to bf16 before its
+# last two products (derived beside it)
 GRAD_ATOL, GRAD_RTOL = 5e-4, {torch.float32: 0.0, torch.bfloat16: 2.0 ** -8}
 # (B, H, K, Sq, Sk, D, causal, window): tests/test_kernels.py FA_CASES and
 # BWD_CASES, and the training path's shape
@@ -117,11 +136,14 @@ FA_CASES = [(2, 4, 2, 256, 256, 64, True, 0),
             (2, 4, 1, 200, 200, 64, True, 0),
             (1, 4, 2, 256, 256, 64, True, 128),
             (1, 2, 2, 128, 256, 64, False, 0),
-            (1, 4, 2, 128, 128, 64, True, 0)]
+            (1, 4, 2, 128, 128, 64, True, 0),
+            (2, 4, 2, 77, 77, 32, True, 0)]         # D 32: the reduced model
 BWD_CASES = [(1, 4, 2, 128, 128, 64, True, 0),
              (2, 2, 1, 96, 160, 64, True, 0),
              (1, 4, 4, 128, 128, 64, False, 0),
-             (1, 2, 2, 128, 128, 64, True, 64)]
+             (1, 2, 2, 128, 128, 64, True, 64),
+             (1, 2, 1, 100, 100, 128, True, 0),     # D 128
+             (2, 4, 2, 77, 77, 32, True, 0)]        # D 32
 FA_MAIN = (8, 9, 3, 2048, 2048, 64, True, 0)
 TRAIN_STEPS, TRAIN_FAIL_AT, TRAIN_CKPT_EVERY = 20, 12, 5
 TRAIN_PROFILE_STEPS = 5
@@ -349,7 +371,8 @@ def phase_card_vs_cpu():
 
 
 def time_ms(fn, reps, flush):
-    """Median CUDA-event time of ``fn`` with L2 flushed before each call."""
+    """CUDA-event times of ``fn`` with L2 flushed before each call, after 3
+    warm-up calls: (median, p10, p90) in ms."""
     times = []
     for _ in range(reps + 3):
         flush.zero_()
@@ -360,7 +383,14 @@ def time_ms(fn, reps, flush):
         z.record()
         torch.cuda.synchronize()
         times.append(a.elapsed_time(z))
-    return float(np.median(times[3:]))
+    t = np.asarray(times[3:])
+    return (float(np.median(t)), float(np.percentile(t, 10)),
+            float(np.percentile(t, 90)))
+
+
+def spread(t) -> str:
+    """A (median, p10, p90) triple as printed by phase 7."""
+    return f"{t[0]:.4f} (p10 {t[1]:.4f}, p90 {t[2]:.4f})"
 
 
 def phase_timing(pa, ref, gen, card):
@@ -379,10 +409,10 @@ def phase_timing(pa, ref, gen, card):
         pa.LAUNCHES = before          # timing launches are not main-path
         p_ms = time_ms(lambda: ref(q, kp, vp, tab, ln), 20, flush)
         bound = nbytes / HBM_BYTES_PER_S * 1e3
-        res[dtype] = (k_ms, p_ms, bound)
+        res[dtype] = (k_ms[0], p_ms[0], bound)
         print(f"[7] paged_attention {str(dtype):14s} B={b} H={h} K={kh} "
               f"D={d} page={page} maxp={maxp} sum(lens)={sum(lens)}: "
-              f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
+              f"kernel_ms={spread(k_ms)} plain_ms={spread(p_ms)} "
               f"bound_ms={bound:.4f} (bytes {nbytes}) [{card}]")
     return res
 
@@ -485,7 +515,8 @@ def phase_flash_kernels(gen):
     from repro_torch.kernels.flash_attention import flash_attention_bwd as fab
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
-                                                         attention_ref)
+                                                         attention_ref,
+                                                         bf16_dkv_bound)
     main_err = {}
     cases = ([(f"fa{i}", c, True, False) for i, c in enumerate(FA_CASES)]
              + [(f"bwd{i}", c, False, True) for i, c in enumerate(BWD_CASES)]
@@ -512,22 +543,28 @@ def phase_flash_kernels(gen):
             if bwd:
                 got = fab.flash_attention_bwd(q, k, v, o, do, lse,
                                               causal=causal, window=window)
-                want = attention_bwd_ref(*(t.float() for t in
-                                           (q, k, v, o, do)), lse,
-                                         causal=causal, window=window)
+                f32 = [t.float() for t in (q, k, v, o, do)]
+                want = attention_bwd_ref(*f32, lse, causal=causal,
+                                         window=window)
+                bounds = [GRAD_ATOL + GRAD_RTOL[dtype] * w.abs()
+                          for w in want]
+                if dtype == torch.bfloat16:
+                    bounds[1:] = bf16_dkv_bound(*f32, lse, causal=causal,
+                                                window=window)
                 torch.cuda.synchronize()
-                for key, g, w in zip(("dq", "dk", "dv"), got, want):
+                for key, g, w, bound in zip(("dq", "dk", "dv"), got, want,
+                                            bounds):
                     check(bool(torch.isfinite(g).all()),
                           f"{name} non-finite {key}")
                     diff = (g.float() - w).abs()
                     errs[key] = float(diff.max())
-                    excess = float((diff - GRAD_ATOL
-                                    - GRAD_RTOL[dtype] * w.abs()).max())
-                    check(excess <= 0, f"backward {name} {dtype} {key}: "
-                          f"max_abs_err {errs[key]}, {excess} past "
-                          f"atol {GRAD_ATOL} + rtol {GRAD_RTOL[dtype]}")
-                del got, want
-            print(f"[3] flash {name:5s} {str(dtype):14s} "
+                    share = float((diff / bound).max())
+                    errs[f"{key}/bound"] = share
+                    check(share <= 1, f"backward {name} {dtype} {key}: "
+                          f"max_abs_err {errs[key]}, {share:.3f} of its "
+                          "bound")
+                del got, want, bounds, f32
+            print(f"[3] flash {name:5s} {str(dtype):14s} D={case[5]} "
                   + " ".join(f"{k}={e:.3e}" for k, e in errs.items()))
             if name == "main" and dtype == torch.bfloat16:
                 main_err = {"flash_attention_fwd": errs["o"],
@@ -556,12 +593,24 @@ def _flash_counts():
             "flash_attention_dkv": fab.DKV_LAUNCHES}
 
 
+def _variant_counts():
+    """Launches of the forward and dkv kernels by variant: the tensor-core
+    bf16 kernels and the float32 FMA ones."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import flash_attention_bwd as fab
+    return {"fwd_wgmma": fa.WGMMA_LAUNCHES, "fwd_fma": fa.FMA_LAUNCHES,
+            "dkv_wgmma": fab.DKV_WGMMA_LAUNCHES,
+            "dkv_fma": fab.DKV_FMA_LAUNCHES}
+
+
 def _zero_counts():
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.flash_attention import flash_attention_bwd as fab
     from repro_torch.kernels.paged_attention import paged_attention as pa
     from repro_torch.kernels.ssd import ssd
     pa.LAUNCHES = fa.LAUNCHES = fab.DQ_LAUNCHES = fab.DKV_LAUNCHES = 0
+    fa.WGMMA_LAUNCHES = fa.FMA_LAUNCHES = 0
+    fab.DKV_WGMMA_LAUNCHES = fab.DKV_FMA_LAUNCHES = 0
     ssd.LAUNCHES = 0
 
 
@@ -608,6 +657,7 @@ def phase_train(card):
         res = tr.run()
         torch.cuda.synchronize()
         launches = _flash_counts()
+        variants = _variant_counts()
         pa_launches = pa.LAUNCHES
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
@@ -624,6 +674,11 @@ def phase_train(card):
     for name, n in launches.items():
         check(n == cfg.n_layers * runs,
               f"{name} launches {n} != {cfg.n_layers} x {runs} steps")
+    want = cfg.n_layers * runs              # bf16 compute: tensor cores
+    check(variants == {"fwd_wgmma": want, "fwd_fma": 0, "dkv_wgmma": want,
+                       "dkv_fma": 0},
+          f"the bf16 Trainer's forward and dkv launches by kernel are "
+          f"{variants}, not {want} tensor-core and 0 FMA each")
     check(pa_launches == 0, "the training path launched paged attention")
     st = np.asarray(step_ms)
     print("[5] " + json.dumps({
@@ -637,7 +692,7 @@ def phase_train(card):
         "tokens_per_s": b * s / float(np.percentile(st, 50)) * 1e3,
         "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
         "loss_first": losses[0], "loss_last": losses[-1],
-        "launches": launches}))
+        "launches": launches, "launches_by_kernel": variants}))
     return launches, tr, step_fn
 
 
@@ -660,20 +715,27 @@ def phase_train_card_vs_cpu():
             t = Trainer(cfg, ShapeConfig("t", "train", 128, 2), TrainConfig(
                 steps=3, log_every=1, ckpt_every=0, seed=4, ckpt_dir=ckpt),
                 device=dev)
+            _zero_counts()
             t.run()
+            variants = _variant_counts()
             runs[dev] = ([m["loss"] for m in t.metrics_log],
                          {k: v.detach().cpu() for k, v in
                           adamw.flatten(t.params).items()},
                          sum(m["lr"] for m in t.metrics_log))
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
+    want = cfg.n_layers * 3                 # float32: the FMA kernels
+    check(variants == {"fwd_wgmma": 0, "fwd_fma": want, "dkv_wgmma": 0,
+                       "dkv_fma": want},
+          f"the float32 Trainer's forward and dkv launches by kernel are "
+          f"{variants}, not 0 tensor-core and {want} FMA each")
     (cl, cp, lr_sum), (gl, gp, _) = runs["cpu"], runs["cuda"]
     loss_err = max(abs(a - b) for a, b in zip(cl, gl))
     p_err = max(float((cp[k] - gp[k]).abs().max()) for k in cp)
     p_tol = 2 * lr_sum + 1e-6
     print(f"[6] reduced smollm fp32, 3 Trainer steps: loss max_abs_err="
           f"{loss_err:.3e} atol=1e-4, params max_abs_err={p_err:.3e} "
-          f"atol={p_tol:.3e}")
+          f"atol={p_tol:.3e}; card launches by kernel {variants}")
     check(loss_err <= 1e-4, f"losses differ: {cl} vs {gl}")
     check(p_err <= p_tol, f"params differ by {p_err}")
 
@@ -686,9 +748,11 @@ def _causal_pairs(sq, sk, causal):
 
 
 def phase_flash_timing(gen, card):
-    """Each flash kernel at the training shape, bf16 and fp32: its time,
-    its bound, the plain version's time and the library yardstick
-    (``scaled_dot_product_attention``, never on the port's path)."""
+    """Each flash kernel at the training shape, bf16 (tensor-core forward
+    and dkv) and fp32 (FMA): its time, its bound, the plain version's time
+    and the library yardsticks (``scaled_dot_product_attention`` forward,
+    and its backward alone, autograd of a saved forward: dq, dk and dv in
+    one call; never on the port's path)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.flash_attention import flash_attention_bwd as fab
@@ -717,10 +781,10 @@ def phase_flash_timing(gen, card):
                 lambda: fab.flash_attention_dq(q, k, v, o, do, lse),
             "flash_attention_dkv":
                 lambda: fab.flash_attention_dkv(q, k, v, do, lse, delta)}
-        k_ms = {n: time_ms(fn, 10, flush) for n, fn in calls.items()}
+        k_ms = {n: time_ms(fn, 20, flush) for n, fn in calls.items()}
         plain_fwd = time_ms(lambda: attention_ref(q, k, v), 5, flush)
         plain_bwd = time_ms(lambda: attention_bwd_ref(q, k, v, o, do, lse),
-                            3, flush)
+                            5, flush)
         qg, kg, vg = (t.detach().clone().requires_grad_(True)
                       for t in (q, k, v))
 
@@ -728,9 +792,12 @@ def phase_flash_timing(gen, card):
             return F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
                                                   enable_gqa=True)
 
-        lib_fwd = time_ms(sdpa, 10, flush)
+        lib_fwd = time_ms(sdpa, 20, flush)
+        saved = sdpa()
+        lib_bwd = time_ms(lambda: torch.autograd.grad(
+            saved, (qg, kg, vg), do, retain_graph=True), 20, flush)
         lib_fwd_bwd = time_ms(lambda: torch.autograd.grad(
-            sdpa(), (qg, kg, vg), do), 10, flush)
+            sdpa(), (qg, kg, vg), do), 20, flush)
         plain = {"flash_attention_fwd": plain_fwd,
                  "flash_attention_dq": plain_bwd,
                  "flash_attention_dkv": plain_bwd}
@@ -739,20 +806,23 @@ def phase_flash_timing(gen, card):
             t_ops = flops[n] / PEAK_FLOPS[dtype] * 1e3
             t_bytes = nbytes[n] / HBM_BYTES_PER_S * 1e3
             res[dtype][n] = {
-                "ms": k_ms[n], "plain_ms": plain[n],
+                "ms": k_ms[n][0], "plain_ms": plain[n][0],
                 "bound_ms": max(t_ops, t_bytes),
                 "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                "library_ms": lib_fwd if n == "flash_attention_fwd" else None}
+                "library_ms": lib_fwd[0] if n == "flash_attention_fwd"
+                else None}
             print(f"[7] {n} {str(dtype):14s} B={b} H={h} K={kh} S={sq} "
-                  f"D={d} causal: kernel_ms={k_ms[n]:.4f} "
-                  f"plain_ms={plain[n]:.4f} bound_ms="
+                  f"D={d} causal: kernel_ms={spread(k_ms[n])} "
+                  f"plain_ms={spread(plain[n])} bound_ms="
                   f"{res[dtype][n]['bound_ms']:.4f} (flops {flops[n]}, "
-                  f"bytes {nbytes[n]}) [{card}]")
+                  f"bytes {nbytes[n]}; "
+                  f"{flops[n] / k_ms[n][0] / 1e9:.1f} TFLOP/s) [{card}]")
         print(f"[7] flash library yardstick {str(dtype):14s}: "
-              f"scaled_dot_product_attention fwd_ms={lib_fwd:.4f} "
-              f"fwd+bwd_ms={lib_fwd_bwd:.4f}; plain backward (dq, dk, dv "
-              f"in one call) ms={plain_bwd:.4f} [{card}]")
-        del q, k, v, do, o, lse, delta, qg, kg, vg
+              f"scaled_dot_product_attention fwd_ms={spread(lib_fwd)} "
+              f"bwd_ms={spread(lib_bwd)} (dq, dk, dv in one call) "
+              f"fwd+bwd_ms={spread(lib_fwd_bwd)}; plain backward (dq, dk, "
+              f"dv in one call) ms={spread(plain_bwd)} [{card}]")
+        del q, k, v, do, o, lse, delta, qg, kg, vg, saved
     return res
 
 
@@ -785,7 +855,7 @@ def phase_train_profile(tr, step_fn, card):
     kernels, busy, by_name = _profile_summary(prof, TRAIN_PROFILE_STEPS)
     total = sum(t for t, _ in by_name.values())
     fa_ms = {key: sum(t for n, (t, _) in by_name.items() if key in n)
-             for key in ("fa_fwd_kernel", "fa_dq_kernel", "fa_dkv_kernel")}
+             for key in ("fa_fwd", "fa_dq", "fa_dkv")}
     untraced = float(np.mean(walls))
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     print("[8] train " + json.dumps({
@@ -1059,15 +1129,16 @@ def phase_ssd_timing(gen, card):
         flops, nbytes = ssd_flops_bytes(SSD_MAIN, dtype)
         t_ops = flops / PEAK_FLOPS[dtype] * 1e3
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        res[dtype] = {"ms": k_ms, "plain_ms": p_ms,
+        res[dtype] = {"ms": k_ms[0], "plain_ms": p_ms[0],
                       "bound_ms": max(t_ops, t_bytes),
                       "bound_by": "operations" if t_ops >= t_bytes
                       else "bytes", "library_ms": None}
         print(f"[7] ssd {str(dtype):14s} B={SSD_MAIN[0]} S={SSD_MAIN[1]} "
               f"H={SSD_MAIN[2]} P={SSD_MAIN[3]} G={SSD_MAIN[4]} "
-              f"N={SSD_MAIN[5]} L={chunk}: kernel_ms={k_ms:.4f} "
-              f"plain_ms={p_ms:.4f} bound_ms={res[dtype]['bound_ms']:.4f} "
-              f"(flops {flops}, bytes {nbytes}; {flops / k_ms / 1e9:.2f} "
+              f"N={SSD_MAIN[5]} L={chunk}: kernel_ms={spread(k_ms)} "
+              f"plain_ms={spread(p_ms)} bound_ms="
+              f"{res[dtype]['bound_ms']:.4f} (flops {flops}, bytes "
+              f"{nbytes}; {flops / k_ms[0] / 1e9:.2f} "
               f"TFLOP/s) [{card}]")
         del x, dt, a, bm, c
     return res
@@ -1131,25 +1202,39 @@ def phase_mamba_profile(cfg, params, card):
                 for n, (t, c) in top]}))
 
 
+def _kernel_name(mangled: str) -> str:
+    """``name<type,ints>`` (or ``name<ints>`` for the bf16-only tensor-core
+    kernels) from a mangled kernel name."""
+    k = re.search(r"\d+([a-z]+(?:_[a-z]+)*_kernel)"
+                  r"I(f|13__nv_bfloat16)?((?:Li\d+E)+)", mangled)
+    if not k:
+        return mangled
+    ints = ",".join(re.findall(r"\d+", k.group(3)))
+    dtype = {"f": "float,", "13__nv_bfloat16": "bf16,"}.get(k.group(2), "")
+    return f"{k.group(1)}<{dtype}{ints}>"
+
+
 def build_report(build):
-    """Print each kernel's registers and spills from nvcc's ptxas report."""
+    """Print each kernel's registers, spills and shared memory, and every
+    ptxas warning (such as wgmma serialised for want of registers), from
+    nvcc's ptxas report."""
     for src in sorted(build.sources()):
         name, spill = None, ""
         for line in build.build_log(src).splitlines():
             m = re.search(r"Compiling entry function '(\S+)'", line)
+            w = re.search(r"(\(C\d{4}\)[^']*)'(\S+)'", line)
             if m:
-                k = re.search(r"\d+([a-z]+(?:_[a-z]+)*_kernel)"
-                              r"I(f|13__nv_bfloat16)((?:Li\d+E)+)",
-                              m.group(1))
-                dtype = k and ("float" if k.group(2) == "f" else "bf16")
-                ints = k and ",".join(re.findall(r"\d+", k.group(3)))
-                name = f"{k.group(1)}<{dtype},{ints}>" if k else m.group(1)
+                name = _kernel_name(m.group(1))
+            elif w:
+                print(f"[2] ptxas warning {src}: {_kernel_name(w.group(2))}:"
+                      f" {w.group(1).strip()}")
             elif name and "spill" in line:
                 spill = line.strip()
             elif name and "registers" in line:
                 print(f"[2] ptxas {src}: {name}: "
                       f"{line.split(':', 1)[1].strip()}; {spill}")
                 name = None
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1215,6 +1300,8 @@ def main() -> int:
         "name": "ssd", "route": "cuda", "source": SSD_SOURCE,
         "replaces": SSD_REPLACES, "launches": ssd_launches,
         "max_abs_err": ssd_err, **ssd_timing[torch.bfloat16]})
+    for k in kernels:
+        k["variants"] = VARIANTS[k["name"]]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,19 +16,39 @@
 // softmax state and the output accumulator are float32 for both input
 // types; a row whose running sum is 0 divides by 1, as the reference does.
 //
-// Design (first version: simple and right).  One block per (q tile of 64
-// rows, query head, batch row); the KV head is h / G and is never
-// materialised per query head.  The block stages its q tile once, then for
-// each k tile stages K and V as float in shared memory; each thread scores
-// 16 keys of its row with 16-byte shared reads, the row's four threads
-// reduce max and sum with shuffles, P goes through shared memory, and each
-// thread accumulates D / 4 output columns in registers.  What bounds it on
-// an H100: its arithmetic, 4 * D flops per visible (query, key) pair (38.7
-// GFLOP for the causal main shape B 8, H 9, S 2048, D 64) over the tensor
-// cores' 989 TFLOP/s in bf16; the bytes (q, k, v, o once each) are far
-// below that line.  This kernel runs on the CUDA cores in float32 FMA, so
-// it stays well above that bound: wgmma tiles fed by TMA are later work.
+// What bounds it on an H100: its arithmetic, 4 * D flops per visible
+// (query, key) pair (38.7 GFLOP for the causal main shape B 8, H 9, S 2048,
+// D 64), over the tensor cores' 989 TFLOP/s in bf16; the bytes (q, k, v, o
+// once each) are far below that line.  Two kernels, chosen by dtype:
+//
+// fa_fwd_wgmma_kernel (bf16).  One block per (query tile of 128 rows,
+// query head, batch row), the heaviest causal tiles of each (head, batch
+// row) launched first, of 384 threads: two consumer warpgroups of 64 rows
+// and a producer warpgroup that gives most of its registers to them
+// (setmaxnreg) and whose first thread issues the copies.  It loads the q
+// tile once and streams K and V tiles through a two-stage ring in shared
+// memory by TMA (bf16, swizzled as wgmma reads them, zero rows past Sk),
+// paced by mbarriers.  Each consumer computes S = q K^T with wgmma
+// (float32 accumulator), runs the online softmax on the accumulator
+// fragment in registers (a row's max and sum over the four lanes of a
+// quad, exp2 on the multi-function unit), masks only the tiles that
+// straddle the diagonal, the window edge or Sk, rounds P to bf16 in
+// registers as the A operand of O += P V (V read MN-major) and rescales O
+// by alpha.  The two consumers overlap each other's softmax and products;
+// within one, the steps run in order (a software-pipelined version that
+// overlapped tile i's softmax with tile i - 1's P V ran slower).  Shared
+// memory: 80 KB at D 64 (key tiles of 128), 96 KB at D 128 (key tiles of
+// 64, to keep S and O in registers), 40 KB at D 32; one block per SM.
+//
+// fa_fwd_kernel (float32).  The first version, float32 FMA on the CUDA
+// cores: a float32 input is held to atol 2e-5, which TF32 products
+// cannot meet.  One block per (q tile of 64 rows, query head, batch row)
+// stages its q tile once, then each K and V tile as float in shared
+// memory; each thread scores 16 keys of its row, the row's four threads
+// reduce max and sum with shuffles, P goes through shared memory, and
+// each thread accumulates D / 4 output columns in registers.
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -136,6 +156,214 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ------------------------------------------------ bf16: wgmma fed by TMA
+using namespace repro_tc;
+
+constexpr int kTcThreads = 3 * 128;  // two consumer warpgroups, a producer one
+constexpr int kStages = 2;                // K/V ring depth
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+template <int D>
+struct FwdTile {
+  static constexpr int kBQ = 128;
+  static constexpr int kBK = D == 128 ? 64 : 128;
+  static constexpr int kQBytes = kBQ * D * 2;
+  static constexpr int kKBytes = kBK * D * 2;
+  static constexpr int kBars = 1 + 2 * kStages;  // q, full[], empty[]
+  static constexpr int kSmem = kQBytes + 2 * kStages * kKBytes + 8 * kBars +
+                               1024;              // + alignment slack
+};
+
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 1)
+fa_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                    const __grid_constant__ CUtensorMap kmap,
+                    const __grid_constant__ CUtensorMap vmap,
+                    __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                    int H, int G, int Sq, int Sk, Strides so, int causal,
+                    int window, float scale_log2) {
+  using L = Swz<D>;
+  using Tl = FwdTile<D>;
+  constexpr int BQ = Tl::kBQ, BK = Tl::kBK, NO = L::kW / 2;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  const uint32_t q_s = smem_u32(smem);
+  const uint32_t kv_s = q_s + Tl::kQBytes;          // stage st: K, then V
+  const uint32_t bars = kv_s + 2 * kStages * Tl::kKBytes;
+  const uint32_t q_bar = bars;
+  auto full = [&](int st) { return bars + 8 * (1 + st); };
+  auto empty = [&](int st) { return bars + 8 * (1 + kStages + st); };
+  auto k_tile = [&](int st) { return kv_s + 2 * st * Tl::kKBytes; };
+  auto v_tile = [&](int st) { return k_tile(st) + Tl::kKBytes; };
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // heavy tiles first
+  const int h = blockIdx.y, b = blockIdx.z, kh = h / G;
+  int kb_lo = 0, kb_hi = (Sk + BK - 1) / BK - 1;     // key tiles that run
+  if (causal) kb_hi = min(kb_hi, (q0 + BQ - 1) / BK);
+  if (window > 0 && q0 - window + 1 > 0) kb_lo = (q0 - window + 1) / BK;
+  const int n = max(0, kb_hi - kb_lo + 1);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  if (tid == 0) {
+    bar_init(q_bar, 1);
+    for (int st = 0; st < kStages; ++st) {
+      bar_init(full(st), 1);
+      bar_init(empty(st), 8);                 // lane 0 of each consumer warp
+    }
+    bar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp >= 8) {          // producer warpgroup: its first thread copies
+    regs_release<40>();
+    if (warp == 8) {
+      if (lane == 0) {
+        bar_expect(q_bar, Tl::kQBytes);
+        tma_tile<D>(q_s, &qmap, q_bar, BQ, q0, h, b);
+        for (int i = 0; i < n; ++i) {
+          const int st = i % kStages;
+          bar_wait(empty(st), ((i / kStages) & 1) ^ 1);
+          const int k0 = (kb_lo + i) * BK;
+          bar_expect(full(st), 2 * Tl::kKBytes);
+          tma_tile<D>(k_tile(st), &kmap, full(st), BK, k0, kh, b);
+          tma_tile<D>(v_tile(st), &vmap, full(st), BK, k0, kh, b);
+        }
+      }
+    }
+  } else {                  // consumer warpgroups
+    regs_claim<232>();
+
+    // consumer warpgroup wg: rows q0 + 64 wg + [0, 64); this thread's rows
+    // r0 and r0 + 8, columns 8 j + c and + 1 of each n8 block
+    const int wg = warp >> 2, wrow = q0 + 64 * wg;
+    const int r0 = wrow + 16 * (warp & 3) + (lane >> 2), c = 2 * (lane & 3);
+    float acc[L::kHalves][NO];
+#pragma unroll
+    for (int hh = 0; hh < L::kHalves; ++hh)
+#pragma unroll
+      for (int i = 0; i < NO; ++i) acc[hh][i] = 0.f;
+    // running max (log2 units) and this lane's part of the running sum
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+    bar_wait(q_bar, 0);
+
+    for (int i = 0; i < n; ++i) {
+      const int st = i % kStages;
+      const int k0 = (kb_lo + i) * BK;
+      bar_wait(full(st), (i / kStages) & 1);
+      float s[BK / 2];
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss(s, desc_k<D>(q_s, BQ, 64 * wg, kk),
+                 desc_k<D>(k_tile(st), BK, 0, kk), kk > 0);
+      wg_commit();
+      wg_wait<0>();
+      pin(s);
+
+      const bool masked = k0 + BK > Sk || (causal && k0 + BK - 1 > wrow) ||
+                          (window > 0 && k0 <= wrow + 63 - window);
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = s[4 * j + e] * scale_log2;
+          if (masked && !visible(r0 + 8 * (e >> 1), k0 + 8 * j + c + (e & 1),
+                                 Sk, causal, window))
+            x = kNegInf;
+          s[4 * j + e] = x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+      float alpha[2];
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        mx[rr] = row_max(mx[rr]);
+        alpha[rr] = ex2(m[rr] - mx[rr]);
+        m[rr] = mx[rr];
+        l[rr] *= alpha[rr];
+      }
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = ex2(s[4 * j + e] - m[e >> 1]);
+          l[e >> 1] += p;
+          s[4 * j + e] = p;
+        }
+#pragma unroll
+      for (int hh = 0; hh < L::kHalves; ++hh)
+#pragma unroll
+        for (int i2 = 0; i2 < NO; ++i2) acc[hh][i2] *= alpha[(i2 >> 1) & 1];
+      uint32_t pa[BK / 16][4];
+      to_a_frags<BK>(s, pa);
+      pin(pa);
+#pragma unroll
+      for (int hh = 0; hh < L::kHalves; ++hh) pin(acc[hh]);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+        for (int hh = 0; hh < L::kHalves; ++hh)
+          wgmma_rs(acc[hh], pa[kk], desc_mn<D>(v_tile(st), BK, hh, kk), 1);
+      wg_commit();
+      wg_wait<0>();
+#pragma unroll
+      for (int hh = 0; hh < L::kHalves; ++hh) pin(acc[hh]);
+      __syncwarp();
+      if (lane == 0) bar_arrive(empty(st));
+    }
+
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int row = r0 + 8 * rr;
+      const float ll = row_sum(l[rr]);
+      const float den = ll == 0.f ? 1.f : ll;
+      const float inv = 1.f / den;
+      if (row < Sq) {
+        __nv_bfloat16* op = o + b * so.b + h * so.h + row * so.s;
+#pragma unroll
+        for (int hh = 0; hh < L::kHalves; ++hh)
+#pragma unroll
+          for (int j = 0; j < L::kW / 8; ++j)
+            *reinterpret_cast<uint32_t*>(op + hh * L::kW + 8 * j + c) =
+                pack_bf16(acc[hh][4 * j + 2 * rr] * inv,
+                          acc[hh][4 * j + 2 * rr + 1] * inv);
+        if (lse != nullptr && (lane & 3) == 0)
+          lse[(static_cast<long long>(b) * H + h) * Sq + row] =
+              m[rr] * kLn2 + logf(den);
+      }
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
+                      void* lse, const long long* st, int B, int H, int K,
+                      int Sq, int Sk, int causal, int window, float scale,
+                      cudaStream_t stream) {
+  using Tl = FwdTile<D>;
+  CUtensorMap qm, km, vm;
+  if (!tile_map<D>(&qm, q, B, H, Sq, st, Tl::kBQ) ||
+      !tile_map<D>(&km, k, B, K, Sk, st + 3, Tl::kBK) ||
+      !tile_map<D>(&vm, v, B, K, Sk, st + 6, Tl::kBK))
+    return cudaErrorInvalidValue;
+  auto kernel = fa_fwd_wgmma_kernel<D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Tl::kSmem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((Sq + Tl::kBQ - 1) / Tl::kBQ, H, B);
+  kernel<<<grid, kTcThreads, Tl::kSmem, stream>>>(
+      qm, km, vm, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse),
+      H, H / K, Sq, Sk, Strides{st[9], st[10], st[11]}, causal, window,
+      scale * kLog2e);
+  return cudaGetLastError();
+}
+
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    void* lse, const long long* st, int B, int H, int K,
@@ -157,33 +385,31 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_d(int D, const void* q, const void* k, const void* v,
-                     void* o, void* lse, const long long* st, int B, int H,
-                     int K, int Sq, int Sk, int causal, int window,
-                     float scale, cudaStream_t stream) {
-  switch (D) {
-    case 32:
-      return launch<T, 32>(q, k, v, o, lse, st, B, H, K, Sq, Sk, causal,
-                           window, scale, stream);
-    case 64:
-      return launch<T, 64>(q, k, v, o, lse, st, B, H, K, Sq, Sk, causal,
-                           window, scale, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, o, lse, st, B, H, K, Sq, Sk, causal,
-                            window, scale, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
+cudaError_t launch_d(int D, int dtype, const void* q, const void* k,
+                     const void* v, void* o, void* lse, const long long* st,
+                     int B, int H, int K, int Sq, int Sk, int causal,
+                     int window, float scale, cudaStream_t stream) {
+#define REPRO_FWD_ARGS q, k, v, o, lse, st, B, H, K, Sq, Sk, causal, window, \
+                       scale, stream
+  if (dtype == 0 && D == 32) return launch<float, 32>(REPRO_FWD_ARGS);
+  if (dtype == 0 && D == 64) return launch<float, 64>(REPRO_FWD_ARGS);
+  if (dtype == 0 && D == 128) return launch<float, 128>(REPRO_FWD_ARGS);
+  if (dtype == 1 && D == 32) return launch_tc<32>(REPRO_FWD_ARGS);
+  if (dtype == 1 && D == 64) return launch_tc<64>(REPRO_FWD_ARGS);
+  if (dtype == 1 && D == 128) return launch_tc<128>(REPRO_FWD_ARGS);
+#undef REPRO_FWD_ARGS
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // strides: 12 int64 element strides, (b, head, s) of q, k, v and o in that
-// order.  dtype: 0 = float32, 1 = bfloat16.  lse may be null.  Returns the
-// launch's cudaError_t (0 on success); the Python wrapper checks shapes,
-// dtypes, devices and alignment before the call and raises on a non-zero
-// return.
+// order.  dtype: 0 = float32 (fa_fwd_kernel), 1 = bfloat16
+// (fa_fwd_wgmma_kernel, which also needs every stride a multiple of 8
+// elements and 16-byte aligned bases for its tensor maps).  lse may be
+// null.  Returns the launch's cudaError_t (0 on success); the Python
+// wrapper checks shapes, dtypes, devices and alignment before the call and
+// raises on a non-zero return.
 extern "C" int repro_flash_attention_fwd(const void* q, const void* k,
                                          const void* v, void* o, void* lse,
                                          const long long* strides, int B,
@@ -194,14 +420,7 @@ extern "C" int repro_flash_attention_fwd(const void* q, const void* k,
       H > 65535 || B > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaGetLastError();  // the code returned below belongs to this call
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return static_cast<int>(launch_d<float>(D, q, k, v, o, lse, strides, B,
-                                            H, K, Sq, Sk, causal, window,
-                                            scale, s));
-  if (dtype == 1)
-    return static_cast<int>(launch_d<__nv_bfloat16>(
-        D, q, k, v, o, lse, strides, B, H, K, Sq, Sk, causal, window, scale,
-        s));
-  return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_d(D, dtype, q, k, v, o, lse, strides, B, H,
+                                   K, Sq, Sk, causal, window, scale,
+                                   static_cast<cudaStream_t>(stream)));
 }

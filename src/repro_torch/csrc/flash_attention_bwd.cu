@@ -8,30 +8,55 @@
 //
 //   dq = sum_k P * (dO v^T - D) k * scale           (fa_dq_kernel)
 //   dv = sum_q P^T dO,  dk = sum_q (P * (dO v^T - D))^T q * scale
-//                                                   (fa_dkv_kernel)
+//                                (fa_dkv_wgmma_kernel, fa_dkv_kernel)
 //
 //   q, o, dO, dq (B, H, Sq, D)   T, strided (see flash_common.cuh)
 //   k, v, dk, dv (B, K, Sk, D)   T, strided
 //   lse, delta   (B, H, Sq)      float32, contiguous
 //
 // Masking and tile skipping follow the forward; query rows past Sq and key
-// rows past Sk contribute nothing.  Everything is float32 inside.
+// rows past Sk contribute nothing.  Sums are float32; the bf16 dkv kernel
+// rounds P^T and dS^T to bf16 as the operands of its last two products.
 //
-// Design (first version: simple and right).  fa_dq_kernel: one block per
-// (q tile, query head, batch row), as the reference's grid with the k axis
-// walked inside the block; it computes D for its rows once, writes it to
-// `delta` for the dkv kernel, and accumulates dq in registers.  The
-// wrapper launches it before fa_dkv_kernel on the same stream.
-// fa_dkv_kernel: one block per (k tile, KV head, batch row), looping over
-// the G query heads of the group and their q tiles, so dk and dv are
-// summed in registers with no atomics (the reference's design).  Each
-// thread owns one key row's quarter; P and dS go through shared memory.
 // What bounds them on an H100: their arithmetic, 6 * D flops per visible
 // (query, key) pair for dq (q k^T, dO v^T, dS k) and 8 * D for dkv (q k^T,
 // dO v^T, P^T dO, dS^T q): 135 GFLOP together at the causal main shape (B
 // 8, H 9, S 2048, D 64), over the tensor cores' 989 TFLOP/s in bf16.
-// These kernels run on the CUDA cores in float32 FMA: wgmma is later work.
+//
+// fa_dq_kernel (both types): one block per (q tile of 64 rows, query head,
+// batch row), as the reference's grid with the k axis walked inside the
+// block; it computes D for its rows once, writes it to `delta` for the dkv
+// kernel, and accumulates dq in registers, in float32 FMA on the CUDA
+// cores.  The wrapper launches it before the dkv kernel on the same stream.
+//
+// fa_dkv_wgmma_kernel (bf16).  One block per (key tile of 128 rows, KV
+// head, batch row), the early (heaviest causal) key tiles first across
+// all heads and batch rows, of 384 threads: two consumer warpgroups of 64
+// key rows and a producer warpgroup (registers given to the consumers by
+// setmaxnreg) whose first warp does the copies.  K and V are staged once
+// by TMA; the block then loops over the G query heads of the group and
+// their query tiles from the first visible one, so dk and dv sum in
+// registers with no atomics (the reference's design).  The producer
+// streams q and dO tiles through a two-stage ring by TMA and writes each
+// tile's lse (times log2 e) and delta beside them.  Per (key tile, query
+// tile), all on wgmma with float32 accumulators: S^T = K q^T and
+// dP^T = V dO^T from shared memory; P^T = exp(S^T scale - lse) and
+// dS^T = P^T (dP^T - delta) in registers, masked only on tiles that
+// straddle the diagonal, the window edge, Sq or Sk; then dV += P^T dO and
+// dK += dS^T q with P^T and dS^T rounded to bf16 as register A operands and
+// dO, q read MN-major.  P^T is computed while dP^T is still on the tensor
+// cores, dS^T while dV += P^T dO is.  dk is scaled once in the epilogue.
+// Query tiles of 64 rows (32 at D 128, to keep S^T, dP^T, dk and dv in
+// registers); shared memory 65 KB at D 64, 97 KB at D 128, 33 KB at D 32;
+// one block per SM.
+//
+// fa_dkv_kernel (float32): the first version in float32 FMA, as the
+// forward's float32 kernel (a float32 input is held to atol 5e-4 on its
+// gradients, which TF32 products cannot promise).  Same grid and loop over
+// 64-row tiles; each thread owns one key row's quarter; P and dS go
+// through shared memory.
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -310,32 +335,271 @@ cudaError_t launch_dkv(const void* const* t, const long long* st, int B,
   return cudaGetLastError();
 }
 
+// ------------------------------------------------ bf16: wgmma fed by TMA
+using namespace repro_tc;
+
+constexpr int kTcThreads = 3 * 128;  // two consumer warpgroups, a producer one
+constexpr int kStages = 2;                // q/dO ring depth
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int D>
+struct DkvTile {
+  static constexpr int kBK = 128;                 // key rows per block
+  static constexpr int kBQ = D == 128 ? 32 : 64;  // query rows per step
+  static constexpr int kKBytes = kBK * D * 2;     // K or V
+  static constexpr int kQBytes = kBQ * D * 2;     // q or dO, one stage
+  static constexpr int kBars = 1 + 2 * kStages;   // kv, full[], empty[]
+  static constexpr int kSmem = 2 * kKBytes + 2 * kStages * kQBytes +
+                               2 * kStages * kBQ * 4 + 8 * kBars + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 1)
+fa_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                    const __grid_constant__ CUtensorMap kmap,
+                    const __grid_constant__ CUtensorMap vmap,
+                    const __grid_constant__ CUtensorMap domap,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta,
+                    __nv_bfloat16* __restrict__ dk,
+                    __nv_bfloat16* __restrict__ dv, int B, int H, int K,
+                    int Sq, int Sk, Strides sdk, Strides sdv, int causal,
+                    int window, float scale) {
+  using L = Swz<D>;
+  using Tl = DkvTile<D>;
+  constexpr int BQ = Tl::kBQ, BK = Tl::kBK, NO = L::kW / 2;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t k_s = smem_u32(smem), v_s = k_s + Tl::kKBytes;
+  const uint32_t qd_s = v_s + Tl::kKBytes;      // stage st: q, then dO
+  float* lse_s = reinterpret_cast<float*>(smem + 2 * Tl::kKBytes +
+                                          2 * kStages * Tl::kQBytes);
+  float* dl_s = lse_s + kStages * BQ;
+  const uint32_t bars = smem_u32(dl_s + kStages * BQ);
+  const uint32_t kv_bar = bars;
+  auto full = [&](int st) { return bars + 8 * (1 + st); };
+  auto empty = [&](int st) { return bars + 8 * (1 + kStages + st); };
+  auto q_tile = [&](int st) { return qd_s + 2 * st * Tl::kQBytes; };
+  auto do_tile = [&](int st) { return q_tile(st) + Tl::kQBytes; };
+
+  // the key tile is the slowest grid index, so the heaviest causal tiles
+  // (the first ones) start first across all KV heads and batch rows
+  const int nkb = K * B;
+  const int k0 = blockIdx.x / nkb * BK;
+  const int kh = blockIdx.x % nkb % K, b = blockIdx.x % nkb / K, G = H / K;
+  const int nq = (Sq + BQ - 1) / BQ;            // query tiles that run
+  const int qb_lo = causal ? k0 / BQ : 0;
+  const int qb_hi =
+      window > 0 ? min(nq - 1, (k0 + BK - 2 + window) / BQ) : nq - 1;
+  const int per_head = max(0, qb_hi - qb_lo + 1);
+  const int n = G * per_head;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  if (tid == 0) {
+    bar_init(kv_bar, 1);
+    for (int st = 0; st < kStages; ++st) {
+      bar_init(full(st), 32);                 // the producer warp's lanes
+      bar_init(empty(st), 8);                 // lane 0 of each consumer warp
+    }
+    bar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp >= 8) {          // producer warpgroup: its first warp copies
+    regs_release<40>();
+    if (warp == 8) {
+      if (lane == 0) {
+        bar_expect(kv_bar, 2 * Tl::kKBytes);
+        tma_tile<D>(k_s, &kmap, kv_bar, BK, k0, kh, b);
+        tma_tile<D>(v_s, &vmap, kv_bar, BK, k0, kh, b);
+      }
+      for (int i = 0; i < n; ++i) {
+        const int st = i % kStages;
+        const int h = kh * G + i / per_head;
+        const int q0 = (qb_lo + i % per_head) * BQ;
+        bar_wait(empty(st), ((i / kStages) & 1) ^ 1);
+        const long long row = (static_cast<long long>(b) * H + h) * Sq;
+        for (int r = lane; r < BQ; r += 32) {
+          const bool in = q0 + r < Sq;
+          lse_s[st * BQ + r] = in ? lse[row + q0 + r] * kLog2e : 0.f;
+          dl_s[st * BQ + r] = in ? delta[row + q0 + r] : 0.f;
+        }
+        if (lane == 0) {
+          bar_expect(full(st), 2 * Tl::kQBytes);
+          tma_tile<D>(q_tile(st), &qmap, full(st), BQ, q0, h, b);
+          tma_tile<D>(do_tile(st), &domap, full(st), BQ, q0, h, b);
+        } else {
+          bar_arrive(full(st));
+        }
+      }
+    }
+  } else {                  // consumer warpgroups
+    regs_claim<232>();
+
+    // consumer warpgroup wg: key rows k0 + 64 wg + [0, 64); this thread's
+    // key rows r0 and r0 + 8, query columns 8 j + c and + 1 of each n8 block
+    const int wg = warp >> 2, wrow = k0 + 64 * wg;
+    const int r0 = wrow + 16 * (warp & 3) + (lane >> 2), c = 2 * (lane & 3);
+    const float scale_log2 = scale * kLog2e;
+    float dk_acc[L::kHalves][NO], dv_acc[L::kHalves][NO];
+#pragma unroll
+    for (int hh = 0; hh < L::kHalves; ++hh)
+#pragma unroll
+      for (int i = 0; i < NO; ++i) dk_acc[hh][i] = dv_acc[hh][i] = 0.f;
+    bar_wait(kv_bar, 0);
+
+    // Per query tile: S^T and dP^T as two product groups; P^T is computed
+    // while dP^T still runs, dS^T while dV += P^T dO runs.
+    for (int i = 0; i < n; ++i) {
+      const int st = i % kStages;
+      const int q0 = (qb_lo + i % per_head) * BQ;
+      bar_wait(full(st), (i / kStages) & 1);
+      float s[BQ / 2], dp[BQ / 2];               // S^T and dP^T
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss(s, desc_k<D>(k_s, BK, 64 * wg, kk),
+                 desc_k<D>(q_tile(st), BQ, 0, kk), kk > 0);
+      wg_commit();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss(dp, desc_k<D>(v_s, BK, 64 * wg, kk),
+                 desc_k<D>(do_tile(st), BQ, 0, kk), kk > 0);
+      wg_commit();
+
+      const bool masked = q0 + BQ > Sq || wrow + 63 >= Sk ||
+                          (causal && wrow + 63 > q0) ||
+                          (window > 0 && wrow <= q0 + BQ - 1 - window);
+      const float* ls = lse_s + st * BQ;
+      const float* dls = dl_s + st * BQ;
+      wg_wait<1>();
+      pin(s);
+#pragma unroll
+      for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = 8 * j + c + (e & 1);
+          float p = ex2(s[4 * j + e] * scale_log2 - ls[col]);
+          if (masked && !(q0 + col < Sq &&
+                          visible(q0 + col, r0 + 8 * (e >> 1), Sk, causal,
+                                  window)))
+            p = 0.f;
+          s[4 * j + e] = p;
+        }
+      uint32_t pa[BQ / 16][4], da[BQ / 16][4];
+      to_a_frags<BQ>(s, pa);
+      pin(pa);
+      wg_wait<0>();
+      pin(dp);
+#pragma unroll
+      for (int hh = 0; hh < L::kHalves; ++hh) pin(dv_acc[hh]);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)
+#pragma unroll
+        for (int hh = 0; hh < L::kHalves; ++hh)
+          wgmma_rs(dv_acc[hh], pa[kk], desc_mn<D>(do_tile(st), BQ, hh, kk),
+                   1);
+      wg_commit();
+#pragma unroll
+      for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dp[4 * j + e] = s[4 * j + e] * (dp[4 * j + e] - dls[8 * j + c +
+                                                              (e & 1)]);
+      to_a_frags<BQ>(dp, da);
+      pin(da);
+#pragma unroll
+      for (int hh = 0; hh < L::kHalves; ++hh) pin(dk_acc[hh]);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)
+#pragma unroll
+        for (int hh = 0; hh < L::kHalves; ++hh)
+          wgmma_rs(dk_acc[hh], da[kk], desc_mn<D>(q_tile(st), BQ, hh, kk),
+                   1);
+      wg_commit();
+      wg_wait<0>();
+      pin(pa);
+      pin(da);
+#pragma unroll
+      for (int hh = 0; hh < L::kHalves; ++hh) {
+        pin(dk_acc[hh]);
+        pin(dv_acc[hh]);
+      }
+      __syncwarp();
+      if (lane == 0) bar_arrive(empty(st));
+    }
+
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int row = r0 + 8 * rr;
+      if (row >= Sk) continue;
+      __nv_bfloat16* dkp = dk + b * sdk.b + kh * sdk.h + row * sdk.s;
+      __nv_bfloat16* dvp = dv + b * sdv.b + kh * sdv.h + row * sdv.s;
+#pragma unroll
+      for (int hh = 0; hh < L::kHalves; ++hh)
+#pragma unroll
+        for (int j = 0; j < L::kW / 8; ++j) {
+          const int col = hh * L::kW + 8 * j + c, e = 4 * j + 2 * rr;
+          *reinterpret_cast<uint32_t*>(dkp + col) = pack_bf16(
+              dk_acc[hh][e] * scale, dk_acc[hh][e + 1] * scale);
+          *reinterpret_cast<uint32_t*>(dvp + col) =
+              pack_bf16(dv_acc[hh][e], dv_acc[hh][e + 1]);
+        }
+    }
+  }
+}
+
+// tensors = {q, k, v, dO, lse, delta, dk, dv}; strides as in launch_dkv
+template <int D>
+cudaError_t launch_dkv_tc(const void* const* t, const long long* st, int B,
+                          int H, int K, int Sq, int Sk, int causal,
+                          int window, float scale, cudaStream_t stream) {
+  using Tl = DkvTile<D>;
+  CUtensorMap qm, km, vm, dom;
+  if (!tile_map<D>(&qm, t[0], B, H, Sq, st, Tl::kBQ) ||
+      !tile_map<D>(&km, t[1], B, K, Sk, st + 3, Tl::kBK) ||
+      !tile_map<D>(&vm, t[2], B, K, Sk, st + 6, Tl::kBK) ||
+      !tile_map<D>(&dom, t[3], B, H, Sq, st + 9, Tl::kBQ))
+    return cudaErrorInvalidValue;
+  auto kernel = fa_dkv_wgmma_kernel<D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Tl::kSmem);
+  if (err != cudaSuccess) return err;
+  const long long blocks =
+      static_cast<long long>((Sk + Tl::kBK - 1) / Tl::kBK) * K * B;
+  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
+  const dim3 grid(static_cast<unsigned>(blocks));
+  kernel<<<grid, kTcThreads, Tl::kSmem, stream>>>(
+      qm, km, vm, dom, static_cast<const float*>(t[4]),
+      static_cast<const float*>(t[5]),
+      static_cast<__nv_bfloat16*>(const_cast<void*>(t[6])),
+      static_cast<__nv_bfloat16*>(const_cast<void*>(t[7])), B, H, K, Sq, Sk,
+      at(st, 4), at(st, 5), causal, window, scale);
+  return cudaGetLastError();
+}
+
 using Launch = cudaError_t (*)(const void* const*, const long long*, int, int,
                                int, int, int, int, int, float, cudaStream_t);
 
-template <template <typename, int> class Pick>
-Launch pick(int D, int dtype) {
-  if (dtype == 0) {
-    if (D == 32) return Pick<float, 32>::fn;
-    if (D == 64) return Pick<float, 64>::fn;
-    if (D == 128) return Pick<float, 128>::fn;
-  } else if (dtype == 1) {
-    if (D == 32) return Pick<__nv_bfloat16, 32>::fn;
-    if (D == 64) return Pick<__nv_bfloat16, 64>::fn;
-    if (D == 128) return Pick<__nv_bfloat16, 128>::fn;
-  }
+template <typename T>
+Launch pick_dq(int D) {
+  if (D == 32) return launch_dq<T, 32>;
+  if (D == 64) return launch_dq<T, 64>;
+  if (D == 128) return launch_dq<T, 128>;
   return nullptr;
 }
 
-template <typename T, int D>
-struct PickDq {
-  static constexpr Launch fn = launch_dq<T, D>;
-};
-
-template <typename T, int D>
-struct PickDkv {
-  static constexpr Launch fn = launch_dkv<T, D>;
-};
+Launch pick_dkv(int D, int dtype) {
+  if (dtype == 0 && D == 32) return launch_dkv<float, 32>;
+  if (dtype == 0 && D == 64) return launch_dkv<float, 64>;
+  if (dtype == 0 && D == 128) return launch_dkv<float, 128>;
+  if (dtype == 1 && D == 32) return launch_dkv_tc<32>;
+  if (dtype == 1 && D == 64) return launch_dkv_tc<64>;
+  if (dtype == 1 && D == 128) return launch_dkv_tc<128>;
+  return nullptr;
+}
 
 int run(Launch fn, const void* const* t, const long long* st, int B, int H,
         int K, int Sq, int Sk, int causal, int window, float scale,
@@ -361,18 +625,23 @@ extern "C" int repro_flash_attention_dq(const void* const* tensors,
                                         int H, int K, int Sq, int Sk, int D,
                                         int causal, int window, float scale,
                                         int dtype, void* stream) {
-  return run(pick<PickDq>(D, dtype), tensors, strides, B, H, K, Sq, Sk,
-             causal, window, scale, stream);
+  Launch fn = dtype == 0   ? pick_dq<float>(D)
+              : dtype == 1 ? pick_dq<__nv_bfloat16>(D)
+                           : nullptr;
+  return run(fn, tensors, strides, B, H, K, Sq, Sk, causal, window, scale,
+             stream);
 }
 
 // dkv: tensors = {q, k, v, dO, lse, delta, dk, dv}; strides: (b, head, s)
 // of q, k, v, dO, dk and dv.  delta comes from the dq launch before it on
-// the same stream.
+// the same stream.  dtype: 0 = float32 (fa_dkv_kernel), 1 = bfloat16
+// (fa_dkv_wgmma_kernel; strides multiples of 8 elements, bases 16-byte
+// aligned).
 extern "C" int repro_flash_attention_dkv(const void* const* tensors,
                                          const long long* strides, int B,
                                          int H, int K, int Sq, int Sk, int D,
                                          int causal, int window, float scale,
                                          int dtype, void* stream) {
-  return run(pick<PickDkv>(D, dtype), tensors, strides, B, H, K, Sq, Sk,
+  return run(pick_dkv(D, dtype), tensors, strides, B, H, K, Sq, Sk,
              causal, window, scale, stream);
 }

@@ -1,8 +1,11 @@
 // Pieces shared by the flash-attention forward (flash_attention.cu) and
-// backward (flash_attention_bwd.cu) kernels for Hopper (sm_90a).
+// backward (flash_attention_bwd.cu) kernels for Hopper (sm_90a): the
+// mask, the row reductions and the strides of every kernel, and the tile
+// layout of the float32 FMA kernels (the float32 forward and dkv, and dq
+// for both types; the bf16 tensor-core kernels use hopper.cuh's).
 //
-// Tiles are 64 query rows by 64 key rows, staged in shared memory as float
-// whatever the input type, with rows padded by 4 floats so that the
+// FMA tiles are 64 query rows by 64 key rows, staged in shared memory as
+// float whatever the input type, with rows padded by 4 floats so that the
 // 16-byte reads of neighbouring rows fall on different banks.  A block has
 // 256 threads: thread t owns tile row t / 4 and one quarter (t % 4) of its
 // columns, so the four threads of a row are neighbouring lanes of one warp
@@ -10,8 +13,9 @@
 //
 // Tensors are (B, heads, S, D) as seen by the caller, given by element
 // strides for b, head and s; d is contiguous.  The wrappers check that
-// every stride is a multiple of 4 and every base 16-byte aligned, so a row
-// chunk of 4 elements is one vector load.
+// every stride is a multiple of 16 bytes (4 float32 or 8 bf16 elements,
+// as TMA needs) and every base 16-byte aligned, so a row chunk of 4
+// elements is one vector load.
 #pragma once
 
 #include <cuda_bf16.h>

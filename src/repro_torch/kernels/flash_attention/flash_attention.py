@@ -1,27 +1,35 @@
-"""CUDA flash-attention forward kernel for Hopper: the wrapper.
+"""CUDA flash-attention forward kernels for Hopper: the wrapper.
 
-Replaces the Pallas TPU kernel ``_fa_kernel``
+Replace the Pallas TPU kernel ``_fa_kernel``
 (``src/repro/kernels/flash_attention/flash_attention.py:36``), the
 training and prefill hot spot: blockwise online-softmax attention with an
-optional log-sum-exp output for the backward pass.  The kernel is
+optional log-sum-exp output for the backward pass.  The kernels are in
 ``repro_torch/csrc/flash_attention.cu``, built with ``nvcc`` for
 ``sm_90a`` at first use (:mod:`repro_torch.kernels._build`) and bound
 through ``ctypes``.
 
-What bounds it on an H100: its arithmetic, ``4 * D`` flops for every
+What bounds them on an H100: their arithmetic, ``4 * D`` flops for every
 visible (query, key) pair, over the tensor cores' 989 TFLOP/s in bf16;
-the bytes of q, k, v and o are far below that line.  The design keeps
-scores in shared memory and registers, never in device memory, indexes the
-KV head as ``h // group`` without repeating KV, skips tile pairs that the
-causal or window mask removes whole, and keeps the softmax state and the
-accumulator in float32.  It runs in float32 FMA on the CUDA cores: wgmma
-and TMA are later work.
+the bytes of q, k, v and o are far below that line.  The input's dtype
+picks the kernel:
 
-The kernel reads every tensor through its strides (d contiguous), so the
-model's (B, S, H, D) activations go in as a transposed view with no copy.
-This wrapper launches or raises: it never falls back to the plain version
-(``ref.py``), and it does not synchronise.  ``LAUNCHES`` counts its
-launches, so a run can show that its main path went through the kernel.
+* bf16: ``fa_fwd_wgmma_kernel`` puts both products on the tensor cores
+  (``wgmma``, float32 accumulators), fed by TMA copies through a two-stage
+  ring of bf16 tiles in shared memory; the softmax runs in registers on
+  the accumulator, P goes to the second product as a bf16 register
+  operand, and only tiles that straddle a mask edge are masked.
+* float32: ``fa_fwd_kernel``, float32 FMA on the CUDA cores, because a
+  float32 input is held to atol 2e-5, which TF32 products cannot meet.
+
+Both keep scores out of device memory, index the KV head as
+``h // group`` without repeating KV, skip tile pairs that the causal or
+window mask removes whole, and keep the softmax state in float32.  They
+read every tensor through its strides (d contiguous), so the model's
+(B, S, H, D) activations go in as a transposed view with no copy.  This
+wrapper launches or raises: it never falls back to the plain version
+(``ref.py``), and it does not synchronise.  ``LAUNCHES`` counts all its
+launches, ``WGMMA_LAUNCHES`` and ``FMA_LAUNCHES`` those of each kernel,
+so a run can show which kernel its main path went through.
 """
 from __future__ import annotations
 
@@ -34,6 +42,8 @@ import torch
 from repro_torch.kernels import _build
 
 LAUNCHES = 0
+WGMMA_LAUNCHES = 0          # bf16: fa_fwd_wgmma_kernel
+FMA_LAUNCHES = 0            # float32: fa_fwd_kernel
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128)
@@ -53,12 +63,13 @@ def _fn():
 
 
 def readable(t: torch.Tensor) -> torch.Tensor:
-    """``t`` itself when the kernels can read it through its strides (d
-    contiguous, every other stride a multiple of 4 elements, base 16-byte
-    aligned), else a contiguous copy."""
+    """``t`` itself when the kernels can read it through its strides, else
+    a contiguous copy: d contiguous, the base 16-byte aligned and every
+    other stride a multiple of 16 bytes (4 float32 elements for the FMA
+    kernels' vector loads, 8 bf16 elements for the tensor maps of TMA)."""
     ok = (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
-          and all(s % 4 == 0 for n, s in zip(t.shape[:-1], t.stride()[:-1])
-                  if n > 1))
+          and all(s * t.element_size() % 16 == 0
+                  for n, s in zip(t.shape[:-1], t.stride()[:-1]) if n > 1))
     return t if ok else t.contiguous()
 
 
@@ -109,6 +120,12 @@ def check_lse(name: str, lse, q):
                          f"(B, H, Sq) = {(b, h, sq)} tensor on {q.device}")
 
 
+def is_wgmma(t: torch.Tensor) -> bool:
+    """Whether the tensor-core (bf16) kernels take ``t``, not the float32
+    FMA ones."""
+    return t.dtype == torch.bfloat16
+
+
 def run(fn, device, *args) -> None:
     """Call one C entry with the current stream of ``device`` appended;
     raise on a non-zero CUDA error."""
@@ -126,7 +143,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     q (B, H, Sq, D); k, v (B, K, Sk, D) -> o (B, H, Sq, D) in q's dtype
     and layout, and with ``return_lse`` also lse (B, H, Sq) float32.
     H must be a multiple of K (GQA)."""
-    global LAUNCHES
+    global LAUNCHES, WGMMA_LAUNCHES, FMA_LAUNCHES
     check_qkv("flash_attention", q, k, v)
     q, k, v = readable(q), readable(k), readable(v)
     b, h, sq, d = q.shape
@@ -137,6 +154,10 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     if q.numel():
         scale = 1.0 / math.sqrt(d) if sm_scale is None else float(sm_scale)
         LAUNCHES += 1
+        if is_wgmma(q):
+            WGMMA_LAUNCHES += 1
+        else:
+            FMA_LAUNCHES += 1
         run(_fn(), q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             o.data_ptr(), None if lse is None else lse.data_ptr(),
             strides(q, k, v, o), b, h, kh, sq, sk, d, int(causal),

@@ -13,12 +13,18 @@ What bounds them on an H100: their arithmetic, ``6 * D`` (dq) and
 ``8 * D`` (dkv) flops for every visible (query, key) pair, over the tensor
 cores' 989 TFLOP/s in bf16.  The dq kernel computes D once per row and
 writes it to a float32 buffer that the dkv kernel, launched after it on
-the same stream, reads.  Both accumulate in float32 and run in float32 FMA
-on the CUDA cores: wgmma is later work.
+the same stream, reads.  The dq kernel runs float32 FMA on the CUDA cores
+for both dtypes.  The dkv kernel is picked by dtype: bf16 runs
+``fa_dkv_wgmma_kernel``, whose four products are ``wgmma`` on the tensor
+cores fed by TMA (P^T and dS^T rounded to bf16 for the last two, so its
+tolerance is ``ref.bf16_dkv_bound``); float32 runs ``fa_dkv_kernel`` in
+float32 FMA.
 
 These wrappers launch or raise: they never fall back to the plain version
 (``ref.attention_bwd_ref``), and they do not synchronise.
-``DQ_LAUNCHES`` and ``DKV_LAUNCHES`` count each kernel's launches.
+``DQ_LAUNCHES`` and ``DKV_LAUNCHES`` count each kernel's launches,
+``DKV_WGMMA_LAUNCHES`` and ``DKV_FMA_LAUNCHES`` the dkv launches by
+kernel.
 """
 from __future__ import annotations
 
@@ -30,10 +36,12 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.flash_attention import (
-    DTYPES, check_lse, check_qkv, readable, run, strides)
+    DTYPES, check_lse, check_qkv, is_wgmma, readable, run, strides)
 
 DQ_LAUNCHES = 0
 DKV_LAUNCHES = 0
+DKV_WGMMA_LAUNCHES = 0      # bf16: fa_dkv_wgmma_kernel
+DKV_FMA_LAUNCHES = 0        # float32: fa_dkv_kernel
 
 _FNS = {}
 
@@ -81,7 +89,7 @@ def flash_attention_dq(q, k, v, o, do, lse, *, causal: bool = True,
 def flash_attention_dkv(q, k, v, do, lse, delta, *, causal: bool = True,
                         window: int = 0, sm_scale: Optional[float] = None):
     """-> (dk, dv) (B, K, Sk, D) in k's dtype and layout."""
-    global DKV_LAUNCHES
+    global DKV_LAUNCHES, DKV_WGMMA_LAUNCHES, DKV_FMA_LAUNCHES
     check_qkv("flash_attention_dkv", q, k, v, do)
     check_lse("flash_attention_dkv", lse, q)
     check_lse("flash_attention_dkv", delta, q)
@@ -91,6 +99,10 @@ def flash_attention_dkv(q, k, v, do, lse, delta, *, causal: bool = True,
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if q.numel():
         DKV_LAUNCHES += 1
+        if is_wgmma(q):
+            DKV_WGMMA_LAUNCHES += 1
+        else:
+            DKV_FMA_LAUNCHES += 1
         run(_fn("dkv"), q.device, _ptrs(q, k, v, do, lse, delta, dk, dv),
             strides(q, k, v, do, dk, dv), b, h, kh, sq, sk, d, int(causal),
             int(window), _scale(q, sm_scale), DTYPES[q.dtype])

@@ -50,6 +50,20 @@ def attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
     return o.reshape(b, h, sq, d).to(q.dtype), lse.reshape(b, h, sq)
 
 
+def _bwd_terms(q, k, v, o, do, lse, causal, window, sm_scale):
+    """P and dS (B, K, G, Sq, Sk) and q, do as (B, K, G, Sq, D), float32."""
+    b, h, sq, d = q.shape
+    kh = k.shape[1]
+    g = h // kh
+    s = _scores(q, k, causal, window, sm_scale)
+    p = torch.exp(s - lse.float().reshape(b, kh, g, sq, 1))
+    qf = q.float().reshape(b, kh, g, sq, d)
+    dof = do.float().reshape(b, kh, g, sq, d)
+    dcap = (dof * o.float().reshape(b, kh, g, sq, d)).sum(-1, keepdim=True)
+    dp = torch.einsum("bkgqd,bksd->bkgqs", dof, v.float())
+    return p, p * (dp - dcap), qf, dof
+
+
 def attention_bwd_ref(q, k, v, o, do, lse, *, causal: bool = True,
                       window: int = 0, sm_scale: Optional[float] = None):
     """q/o/do (B,H,Sq,D); k/v (B,K,Sk,D); lse (B,H,Sq) -> (dq, dk, dv) in
@@ -57,19 +71,45 @@ def attention_bwd_ref(q, k, v, o, do, lse, *, causal: bool = True,
     dS = P * (dP - D): dq = dS k * scale, dk = dS^T q * scale (summed over
     the group's query heads), dv = P^T do (likewise)."""
     b, h, sq, d = q.shape
-    kh = k.shape[1]
-    g = h // kh
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
-    s = _scores(q, k, causal, window, sm_scale)
-    p = torch.exp(s - lse.float().reshape(b, kh, g, sq, 1))
-    qf = q.float().reshape(b, kh, g, sq, d)
-    dof = do.float().reshape(b, kh, g, sq, d)
-    dcap = (dof * o.float().reshape(b, kh, g, sq, d)).sum(-1, keepdim=True)
-    dp = torch.einsum("bkgqd,bksd->bkgqs", dof, v.float())
-    ds = p * (dp - dcap)
+    p, ds, qf, dof = _bwd_terms(q, k, v, o, do, lse, causal, window,
+                                sm_scale)
     dq = torch.einsum("bkgqs,bksd->bkgqd", ds, k.float()) * sm_scale
     dk = torch.einsum("bkgqs,bkgqd->bksd", ds, qf) * sm_scale
     dv = torch.einsum("bkgqs,bkgqd->bksd", p, dof)
     return (dq.reshape(b, h, sq, d).to(q.dtype), dk.to(k.dtype),
             dv.to(v.dtype))
+
+
+# The bf16 dkv kernel's tolerance.  It rounds P^T and dS^T to bf16 (unit
+# roundoff u = 2^-9) as the register operands of dV += P^T dO and
+# dK += dS^T q, as every tensor-core flash backward does; q and dO are the
+# same bf16 values in both versions.  So each term of dv moves by at most
+# u * P |dO| and each term of dk by u * scale * |dS| |q|, in all
+#   |dv - ref| <= u P^T |dO|,   |dk - ref| <= u scale |dS|^T |q|.
+# Twice u (2^-8) covers that rounding with room for the float32 sums'
+# order and exp2 against exp; 2^-8 |ref| covers the one bf16 rounding of
+# the stored gradient (u of its value); 5e-4 is the float32 gradients'
+# atol (the reference's backward tests).  dq is not rounded on the way
+# (its kernel is float32 FMA) and keeps atol 5e-4 + rtol 2^-8.
+GRAD_ATOL = 5e-4
+BF16_TERM = 2.0 ** -8
+
+
+def bf16_dkv_bound(q, k, v, o, do, lse, *, causal: bool = True,
+                   window: int = 0, sm_scale: Optional[float] = None):
+    """-> (dk bound, dv bound), float32 (B, K, Sk, D): the elementwise
+    bounds on |dk - ref| and |dv - ref| of the bf16 dkv kernel, where ref is
+    this module's float32 plain version on the same (bf16) inputs."""
+    d = q.shape[-1]
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
+    p, ds, qf, dof = _bwd_terms(q, k, v, o, do, lse, causal, window,
+                                sm_scale)
+    dk = torch.einsum("bkgqs,bkgqd->bksd", ds, qf) * sm_scale
+    dv = torch.einsum("bkgqs,bkgqd->bksd", p, dof)
+    dk_rounding = torch.einsum("bkgqs,bkgqd->bksd", ds.abs(), qf.abs())
+    dv_rounding = torch.einsum("bkgqs,bkgqd->bksd", p, dof.abs())
+    return (BF16_TERM * (sm_scale * dk_rounding + dk.abs()) + GRAD_ATOL,
+            BF16_TERM * (dv_rounding + dv.abs()) + GRAD_ATOL)

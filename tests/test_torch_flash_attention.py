@@ -31,7 +31,8 @@ from repro_torch.kernels.flash_attention import flash_attention as fa
 from repro_torch.kernels.flash_attention import flash_attention_bwd as fab
 from repro_torch.kernels.flash_attention import ops
 from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
-                                                     attention_ref)
+                                                     attention_ref,
+                                                     bf16_dkv_bound)
 from repro_torch.models import attention
 
 # small shapes: one intra-op thread is faster and leaves the cores to
@@ -186,3 +187,82 @@ def test_attend_chunked_chunk_size_invariance(sq, chunk, window):
     got = attention.attend_chunked(q, k, v, window=window, chunk=chunk)
     want = ops.mha(q, k, v, causal=True, window=window)
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=3e-5)
+
+
+def _emulate_bf16_dkv(q, k, v, o, do, lse, causal, window):
+    """dk, dv as the bf16 tensor-core dkv kernel rounds them: P and dS cast
+    to bf16 and back before the products, the sums in float32, the stored
+    gradients in bf16."""
+    b, h, sq, d = q.shape
+    kh = k.shape[1]
+    g, scale = h // kh, 1.0 / np.sqrt(d)
+    s = torch.einsum("bkgqd,bksd->bkgqs", q.float().reshape(b, kh, g, sq, d),
+                     k.float()) * scale
+    qpos = torch.arange(sq)[:, None]
+    kpos = torch.arange(k.shape[2])[None, :]
+    vis = torch.ones_like(s[0, 0, 0], dtype=torch.bool)
+    if causal:
+        vis &= kpos <= qpos
+    if window > 0:
+        vis &= kpos > qpos - window
+    p = torch.where(vis, torch.exp(s - lse.reshape(b, kh, g, sq, 1)), 0.0)
+    dof = do.float().reshape(b, kh, g, sq, d)
+    dcap = (dof * o.float().reshape(b, kh, g, sq, d)).sum(-1, keepdim=True)
+    ds = p * (torch.einsum("bkgqd,bksd->bkgqs", dof, v.float()) - dcap)
+    rnd = lambda x: x.to(torch.bfloat16).float()  # noqa: E731
+    dk = torch.einsum("bkgqs,bkgqd->bksd", rnd(ds),
+                      q.float().reshape(b, kh, g, sq, d)) * scale
+    dv = torch.einsum("bkgqs,bkgqd->bksd", rnd(p), dof)
+    return rnd(dk), rnd(dv)
+
+
+@pytest.mark.parametrize("case", BWD_CASES,
+                         ids=[f"fabwd{i}" for i in range(len(BWD_CASES))])
+def test_bf16_dkv_bound_holds_the_kernels_rounding(case):
+    """The restated bf16 dk/dv tolerance (``ref.bf16_dkv_bound``): the
+    kernel's rounding of P and dS to bf16, emulated in plain torch, stays
+    inside it (and breaks the check it replaces, atol 5e-4 + rtol 2^-8),
+    and the float32 plain version sits well inside it against the
+    reference's Pallas backward (interpret mode) on the same values."""
+    b, h, kh, sq, sk, d, causal, window = case
+    q, k, v, do = (torch.tensor(a).bfloat16() for a in
+                   _np_inputs(b, h, kh, sq, sk, d, 9, n=4))
+    o, lse = attention_ref(q, k, v, causal=causal, window=window)
+    kw = dict(causal=causal, window=window)
+    bound = bf16_dkv_bound(q, k, v, o, do, lse, **kw)
+    _, want_k, want_v = attention_bwd_ref(
+        *(t.float() for t in (q, k, v, o, do)), lse, **kw)
+    emu = _emulate_bf16_dkv(q, k, v, o, do, lse, causal, window)
+    jx = [jnp.asarray(t.float().numpy()) for t in (q, k, v, o, do)]
+    _, jdk, jdv = pallas_flash_attention_bwd(
+        *jx, jnp.asarray(lse.numpy()), causal=causal, window=window,
+        interpret=True)
+    old_excess = []
+    for got, want, pallas, lim in zip(emu, (want_k, want_v), (jdk, jdv),
+                                      bound):
+        assert lim.shape == want.shape
+        assert bool(((got - want).abs() <= lim).all())
+        assert bool(((torch.tensor(np.asarray(pallas)) - want).abs()
+                     <= 0.1 * lim).all())
+        old_excess.append(float(((got - want).abs() - 5e-4
+                                 - 2.0 ** -8 * want.abs()).max()))
+    assert max(old_excess) > 0
+
+
+def test_readable_keeps_model_views_and_copies_misaligned_bf16():
+    """The wrappers' stride rule, no card needed: the model's (B, S, H, D)
+    bf16 activations at D 64 go to the kernels as the transposed view
+    itself; a bf16 view whose s-stride is not a multiple of 8 elements (16
+    bytes, as TMA needs) is copied; the same stride in float32 (16-byte
+    multiples) is not."""
+    x = torch.randn(2, 130, 9, 64).bfloat16()
+    view = x.transpose(1, 2)
+    assert fa.readable(view) is view
+    padded = torch.randn(2, 130, 3 * 64 + 4).bfloat16()
+    odd = padded[..., :192].unflatten(-1, (3, 64)).transpose(1, 2)
+    assert odd.stride(2) % 8 != 0
+    copy = fa.readable(odd)
+    assert copy is not odd and copy.is_contiguous()
+    assert torch.equal(copy, odd)
+    odd32 = padded.float()[..., :192].unflatten(-1, (3, 64)).transpose(1, 2)
+    assert fa.readable(odd32) is odd32
