@@ -5,10 +5,11 @@
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (into the
 git-ignored ``build/``, one ``nvcc`` per source, all at once), holds each
 kernel against its plain PyTorch version on the card, drives the port's
-three main paths at full width with seeded random weights: requests served
-through ``repro_torch.serve.engine.ServingEngine`` and training steps
-through ``repro_torch.train.loop.Trainer`` on smollm-135m, and dense-cache
-serving (``prefill`` and ``decode_step`` of ``models/transformer.py``) of
+main paths at full width with seeded random weights: requests served
+through ``repro_torch.serve.engine.ServingEngine`` on smollm-135m and on
+h2o-danube-3-4b (head_dim 120), training steps through
+``repro_torch.train.loop.Trainer`` on smollm-135m, and dense-cache serving
+(``prefill`` and ``decode_step`` of ``models/transformer.py``) of
 mamba2-1.3b; checks the card against the CPU on the reduced models, times
 the kernels and profiles a decode step, a training step, a mamba prefill
 and a mamba decode step.  Phases, in order:
@@ -18,24 +19,29 @@ and a mamba decode step.  Phases, in order:
      registers, shared memory and spills;
   3. kernels vs plain versions on the card (fp32 and bf16): paged
      attention with and without the split of rows over several blocks;
-     the flash-attention forward, dq and dkv kernels (bf16 forward and dkv
-     on the tensor cores, float32 on FMA) on the reference's test cases,
-     head dims 32, 64 and 128 and the training shape, and ``mha_fused``'s
-     gradient against autograd of the plain forward; the SSD scan on the
+     the flash-attention forward, dq and dkv kernels (bf16 on the tensor
+     cores, float32 on FMA) on the reference's test cases, head dims 32,
+     64, 80, 120 and 128, h2o-danube's and the training shape, and
+     ``mha_fused``'s gradient against autograd of the plain forward; the
+     SSD scan (bf16 on the tensor cores, float32 on FMA) on the
      reference's cases, the reduced and the main mamba shapes, a ragged S
      and an initial state;
   4. serving main path: 24 requests through the engine at full width, bf16;
+ 10. h2o-danube serving: 8 requests of 256-1024 prompt tokens, 32 new
+     tokens each, through the engine at full width in bf16 (head_dim 120 on
+     the paged kernel built for 128);
   5. training main path: 20 steps of ``Trainer`` at full width, sequence
      2048, batch 8, fp32 masters with bf16 compute, a checkpoint every 5
-     steps and an injected failure at step 12 (one restart); its forward
-     and dkv launches all on the tensor-core kernels;
+     steps and an injected failure at step 12 (one restart); its forward,
+     dq and dkv launches all on the tensor-core kernels;
   9. mamba serving main path: 12 requests of full-width mamba2-1.3b, bf16
      (8 prompts of 2048 tokens, 4 of 1000), two ``prefill`` calls and 64
      greedy ``decode_step``s for each; then, with fp32 weights, decode
      after a 1000-token prefill against the prefill of 1001 tokens;
   6. card vs CPU on the reduced models, fp32: decode_step_paged, 3
-     ``Trainer`` steps from the same weights (its forward and dkv launches
-     all on the float32 FMA kernels), mamba2 prefill and 8 decode steps;
+     ``Trainer`` steps from the same weights (its forward, dq and dkv
+     launches all on the float32 FMA kernels), mamba2 prefill and 8 decode
+     steps;
   7. kernel timing at the main paths' shapes (median, p10 and p90), with
      each kernel's bound and a PyTorch library call as yardstick where one
      computes the same function (for flash attention also SDPA's backward
@@ -47,7 +53,7 @@ and a mamba decode step.  Phases, in order:
 
 Each main path runs with every kernel's launch count set to 0 just before
 it and read just after it; each phase's number is printed at the start of
-its lines (phase 9 runs after phase 5).  Any failed phase ends the script with a
+its lines (phase 10 runs after phase 4, phase 9 after phase 5).  Any failed phase ends the script with a
 non-zero exit and no result line.  The line before the last is a JSON
 object describing each kernel; the last line is ``{"ok": true, "device":
 {...}}``.  Imports nothing of JAX and nothing of the JAX package.
@@ -79,11 +85,13 @@ VARIANTS = {
         "float32": "paged_attention_kernel, combine_kernel (float32 FMA)"},
     "flash_attention_fwd": {"bfloat16": "fa_fwd_wgmma_kernel (wgmma, TMA)",
                             "float32": "fa_fwd_kernel (float32 FMA)"},
-    "flash_attention_dq": {"bfloat16": "fa_dq_kernel (float32 FMA)",
+    "flash_attention_dq": {"bfloat16": "fa_dq_wgmma_kernel (wgmma, TMA)",
                            "float32": "fa_dq_kernel (float32 FMA)"},
     "flash_attention_dkv": {"bfloat16": "fa_dkv_wgmma_kernel (wgmma, TMA)",
                             "float32": "fa_dkv_kernel (float32 FMA)"},
-    "ssd": {"bfloat16": "ssd_kernel (float32 FMA)",
+    "ssd": {"bfloat16": "ssd_cb_kernel, ssd_state_kernel, ssd_pass_kernel, "
+                        "ssd_scan_kernel (wgmma; float32 operands as bf16 "
+                        "hi + lo)",
             "float32": "ssd_kernel (float32 FMA)"}}
 FA_REPLACES = {
     "flash_attention_fwd":
@@ -106,6 +114,9 @@ SSD_RAGGED = (4, 1000, 64, 64, 1, 128, 256)
 # keeps ~1e-5 absolute, so exp(cum_i - cum_j) and every y and state term
 # differ by ~1e-4 of their value (rtol 2^-12).  y in bf16 is in addition
 # one bf16 rounding (2^-9 of its value) from that float32 sum (rtol 2^-8).
+# The bf16 tensor-core path splits each float32 operand into bf16 hi + lo
+# (under 2^-16 of each term), which keeps these bounds
+# (tests/test_torch_ssd.py emulates it; one bf16 rounding breaks them).
 SSD_ATOL = 5e-4
 SSD_RTOL = {torch.float32: 2.0 ** -12, torch.bfloat16: 2.0 ** -8}
 MAMBA_PROMPTS = ((8, 2048), (4, 1000))    # (requests, prompt tokens)
@@ -123,12 +134,11 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 ATOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # flash-attention gradients: float32 atol 5e-4 (the reference's backward
 # tests).  bf16, against the float32 plain version on the same bf16
-# values: dq at atol 5e-4 plus rtol 2^-8 (its kernel computes in float32
-# and rounds the stored gradient to bf16 once, at most 2^-9 of its value);
-# dk and dv within ``ref.bf16_dkv_bound``, the elementwise bound implied by
-# the tensor-core dkv kernel's rounding of P and dS to bf16 before its
-# last two products (derived beside it)
-GRAD_ATOL, GRAD_RTOL = 5e-4, {torch.float32: 0.0, torch.bfloat16: 2.0 ** -8}
+# values: dq within ``ref.bf16_dq_bound`` and dk, dv within
+# ``ref.bf16_dkv_bound``, the elementwise bounds implied by the tensor-core
+# kernels' rounding of dS (dq) and of P and dS (dkv) to bf16 before their
+# last products (derived beside them)
+GRAD_ATOL = 5e-4
 # (B, H, K, Sq, Sk, D, causal, window): tests/test_kernels.py FA_CASES and
 # BWD_CASES, and the training path's shape
 FA_CASES = [(2, 4, 2, 256, 256, 64, True, 0),
@@ -137,21 +147,31 @@ FA_CASES = [(2, 4, 2, 256, 256, 64, True, 0),
             (1, 4, 2, 256, 256, 64, True, 128),
             (1, 2, 2, 128, 256, 64, False, 0),
             (1, 4, 2, 128, 128, 64, True, 0),
-            (2, 4, 2, 77, 77, 32, True, 0)]         # D 32: the reduced model
+            (2, 4, 2, 77, 77, 32, True, 0),         # D 32: the reduced model
+            (2, 4, 2, 200, 200, 80, True, 0),       # D 80: zamba2's block
+            (1, 4, 1, 130, 130, 120, True, 64),     # D 120, window
+            (2, 32, 8, 2048, 2048, 120, True, 0)]   # h2o-danube-3-4b
 BWD_CASES = [(1, 4, 2, 128, 128, 64, True, 0),
              (2, 2, 1, 96, 160, 64, True, 0),
              (1, 4, 4, 128, 128, 64, False, 0),
              (1, 2, 2, 128, 128, 64, True, 64),
              (1, 2, 1, 100, 100, 128, True, 0),     # D 128
-             (2, 4, 2, 77, 77, 32, True, 0)]        # D 32
+             (2, 4, 2, 77, 77, 32, True, 0),        # D 32
+             (2, 4, 2, 200, 200, 80, True, 0),      # D 80
+             (1, 4, 1, 130, 130, 120, True, 64),    # D 120, window
+             (2, 32, 8, 2048, 2048, 120, True, 0)]  # h2o-danube-3-4b
 FA_MAIN = (8, 9, 3, 2048, 2048, 64, True, 0)
 TRAIN_STEPS, TRAIN_FAIL_AT, TRAIN_CKPT_EVERY = 20, 12, 5
 TRAIN_PROFILE_STEPS = 5
 # (B, H, K, D, page, maxp, n_pages) from tests/test_kernels.py PA_CASES
 PA_CASES = [(2, 8, 2, 64, 128, 4, 16), (3, 4, 4, 128, 64, 6, 32),
-            (1, 16, 8, 64, 256, 3, 8)]
+            (1, 16, 8, 64, 256, 3, 8),
+            (2, 8, 2, 80, 16, 9, 40),        # D 80: zamba2's shared block
+            (8, 32, 8, 120, 16, 64, 600)]    # D 120: h2o-danube-3-4b
 MAIN_SHAPE = (16, 9, 3, 64, 16, 64, 2048)
 PROFILE_STEPS = 32
+# phase 10: full-width h2o-danube-3-4b (head_dim 120) through the engine
+H2O_REQUESTS, H2O_PROMPT, H2O_NEW_TOKENS = 8, (256, 1024), 32
 
 
 def check(cond: bool, msg: str) -> None:
@@ -303,6 +323,80 @@ def phase_main_path(card):
     }
     print("[4] " + json.dumps(line))
     return launches, cfg, params
+
+
+def phase_h2o_serving(card):
+    """Full-width h2o-danube-3-4b in bf16 through ``ServingEngine``: its
+    head_dim of 120 runs on the paged kernel built for 128.  H2O_REQUESTS
+    requests of 256-1024 prompt tokens and H2O_NEW_TOKENS new tokens each,
+    half greedy, half sampled.  Returns its paged-attention launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.services.mmu import MMU, MMUConfig
+    from repro_torch.kernels.paged_attention import paged_attention as pa
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve.engine import ServingEngine
+
+    cfg = get_config("h2o-danube-3-4b")
+    check(cfg.head_dim == 120, f"h2o-danube head_dim {cfg.head_dim}")
+    params = init_params(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(3), dtype=torch.bfloat16, device="cuda")
+    n_params = sum(v.numel() for v in _leaves(params))
+    max_len = H2O_PROMPT[1] + H2O_NEW_TOKENS
+
+    def engine(n_pages):
+        mmu = MMU(MMUConfig(page_size=16, n_pages=n_pages))
+        return mmu, ServingEngine(cfg, params, mmu, max_batch=H2O_REQUESTS,
+                                  max_len=max_len, prefill_chunk=256,
+                                  device="cuda")
+
+    _, warm = engine(256)              # warm-up: cuBLAS, the kernel load
+    warm.submit(list(range(3, 300)), max_new_tokens=4)
+    warm.run()
+    del warm
+    rs = np.random.RandomState(10)
+    prompts = [rs.randint(0, cfg.vocab_size, size=int(rs.randint(
+        H2O_PROMPT[0], H2O_PROMPT[1] + 1))).tolist()
+        for _ in range(H2O_REQUESTS)]
+    mmu, eng = engine(2048)            # 2048 pages of 16: 3.77 GB of KV
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    for i, prompt in enumerate(prompts):
+        eng.submit(prompt, max_new_tokens=H2O_NEW_TOKENS,
+                   **({"temperature": 0.8} if i % 2 else {}))
+    stats = eng.run()
+    torch.cuda.synchronize()
+    launches = pa.LAUNCHES
+    check(stats["completed"] == H2O_REQUESTS,
+          f"h2o completed {stats['completed']}/{H2O_REQUESTS}")
+    check(mmu.utilization()["pages_used"] == 0, "h2o pages leaked")
+    for r in eng.completed:
+        check(len(r.out_tokens) == H2O_NEW_TOKENS,
+              f"h2o rid {r.rid} has {len(r.out_tokens)} tokens")
+        check(all(0 <= t < cfg.vocab_size for t in r.out_tokens),
+              f"h2o rid {r.rid} token outside the vocabulary")
+    check(launches == cfg.n_layers * eng.steps,
+          f"h2o LAUNCHES {launches} != {cfg.n_layers} x {eng.steps} steps")
+    check(all(n == 0 for n in _flash_counts().values())
+          and _ssd_count() == 0,
+          "the h2o serving path launched a flash or SSD kernel")
+    st = np.asarray(eng.decode_step_times) * 1e3
+    print("[10] " + json.dumps({
+        "card": card, "model": "h2o-danube-3-4b (random weights, bf16)",
+        "params": n_params, "head_dim": cfg.head_dim,
+        "requests": H2O_REQUESTS,
+        "prompt_tokens": [len(p) for p in prompts],
+        "decode_steps": eng.steps, "tokens": stats["tokens"],
+        "wall_s": stats["wall_s"], "tokens_per_s": stats["tokens_per_s"],
+        "decode_step_ms_p50": float(np.percentile(st, 50)),
+        "decode_step_ms_p90": float(np.percentile(st, 90)),
+        "prefill_tokens_per_s": eng.prefill_computed / eng.prefill_s,
+        "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "pa_launches": launches,
+        "first_tokens": [r.out_tokens[:6] for r in eng.completed[:2]]}))
+    del eng, mmu, params
+    torch.cuda.empty_cache()
+    return launches
 
 
 def phase_card_vs_cpu():
@@ -516,7 +610,8 @@ def phase_flash_kernels(gen):
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
                                                          attention_ref,
-                                                         bf16_dkv_bound)
+                                                         bf16_dkv_bound,
+                                                         bf16_dq_bound)
     main_err = {}
     cases = ([(f"fa{i}", c, True, False) for i, c in enumerate(FA_CASES)]
              + [(f"bwd{i}", c, False, True) for i, c in enumerate(BWD_CASES)]
@@ -546,11 +641,11 @@ def phase_flash_kernels(gen):
                 f32 = [t.float() for t in (q, k, v, o, do)]
                 want = attention_bwd_ref(*f32, lse, causal=causal,
                                          window=window)
-                bounds = [GRAD_ATOL + GRAD_RTOL[dtype] * w.abs()
-                          for w in want]
-                if dtype == torch.bfloat16:
-                    bounds[1:] = bf16_dkv_bound(*f32, lse, causal=causal,
-                                                window=window)
+                kw = dict(causal=causal, window=window)
+                bounds = ([torch.full_like(w, GRAD_ATOL) for w in want]
+                          if dtype == torch.float32 else
+                          [bf16_dq_bound(*f32, lse, **kw),
+                           *bf16_dkv_bound(*f32, lse, **kw)])
                 torch.cuda.synchronize()
                 for key, g, w, bound in zip(("dq", "dk", "dv"), got, want,
                                             bounds):
@@ -594,11 +689,12 @@ def _flash_counts():
 
 
 def _variant_counts():
-    """Launches of the forward and dkv kernels by variant: the tensor-core
-    bf16 kernels and the float32 FMA ones."""
+    """Launches of the forward, dq and dkv kernels by variant: the
+    tensor-core bf16 kernels and the float32 FMA ones."""
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.flash_attention import flash_attention_bwd as fab
     return {"fwd_wgmma": fa.WGMMA_LAUNCHES, "fwd_fma": fa.FMA_LAUNCHES,
+            "dq_wgmma": fab.DQ_WGMMA_LAUNCHES, "dq_fma": fab.DQ_FMA_LAUNCHES,
             "dkv_wgmma": fab.DKV_WGMMA_LAUNCHES,
             "dkv_fma": fab.DKV_FMA_LAUNCHES}
 
@@ -610,13 +706,21 @@ def _zero_counts():
     from repro_torch.kernels.ssd import ssd
     pa.LAUNCHES = fa.LAUNCHES = fab.DQ_LAUNCHES = fab.DKV_LAUNCHES = 0
     fa.WGMMA_LAUNCHES = fa.FMA_LAUNCHES = 0
+    fab.DQ_WGMMA_LAUNCHES = fab.DQ_FMA_LAUNCHES = 0
     fab.DKV_WGMMA_LAUNCHES = fab.DKV_FMA_LAUNCHES = 0
-    ssd.LAUNCHES = 0
+    ssd.LAUNCHES = ssd.TC_LAUNCHES = ssd.FMA_LAUNCHES = 0
 
 
 def _ssd_count():
     from repro_torch.kernels.ssd import ssd
     return ssd.LAUNCHES
+
+
+def _ssd_paths():
+    """SSD calls by path: the bf16 tensor-core kernels, the float32 FMA
+    kernel."""
+    from repro_torch.kernels.ssd import ssd
+    return {"tc": ssd.TC_LAUNCHES, "fma": ssd.FMA_LAUNCHES}
 
 
 def phase_train(card):
@@ -675,10 +779,10 @@ def phase_train(card):
         check(n == cfg.n_layers * runs,
               f"{name} launches {n} != {cfg.n_layers} x {runs} steps")
     want = cfg.n_layers * runs              # bf16 compute: tensor cores
-    check(variants == {"fwd_wgmma": want, "fwd_fma": 0, "dkv_wgmma": want,
-                       "dkv_fma": 0},
-          f"the bf16 Trainer's forward and dkv launches by kernel are "
-          f"{variants}, not {want} tensor-core and 0 FMA each")
+    check(variants == {"fwd_wgmma": want, "fwd_fma": 0, "dq_wgmma": want,
+                       "dq_fma": 0, "dkv_wgmma": want, "dkv_fma": 0},
+          f"the bf16 Trainer's flash launches by kernel are {variants}, "
+          f"not {want} tensor-core and 0 FMA each")
     check(pa_launches == 0, "the training path launched paged attention")
     st = np.asarray(step_ms)
     print("[5] " + json.dumps({
@@ -725,10 +829,10 @@ def phase_train_card_vs_cpu():
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
     want = cfg.n_layers * 3                 # float32: the FMA kernels
-    check(variants == {"fwd_wgmma": 0, "fwd_fma": want, "dkv_wgmma": 0,
-                       "dkv_fma": want},
-          f"the float32 Trainer's forward and dkv launches by kernel are "
-          f"{variants}, not 0 tensor-core and {want} FMA each")
+    check(variants == {"fwd_wgmma": 0, "fwd_fma": want, "dq_wgmma": 0,
+                       "dq_fma": want, "dkv_wgmma": 0, "dkv_fma": want},
+          f"the float32 Trainer's flash launches by kernel are {variants}, "
+          f"not 0 tensor-core and {want} FMA each")
     (cl, cp, lr_sum), (gl, gp, _) = runs["cpu"], runs["cuda"]
     loss_err = max(abs(a - b) for a, b in zip(cl, gl))
     p_err = max(float((cp[k] - gp[k]).abs().max()) for k in cp)
@@ -906,7 +1010,12 @@ def phase_ssd_kernels(gen):
         chunk = case[6]
         for dtype in (torch.float32, torch.bfloat16):
             x, dt, a, bm, c, st0 = ssd_inputs(case, dtype, gen, init)
+            before = _ssd_paths()
             y, st = ssd_scan(x, dt, a, bm, c, chunk=chunk, init_state=st0)
+            tc = dtype == torch.bfloat16
+            check(_ssd_paths() == {"tc": before["tc"] + tc,
+                                   "fma": before["fma"] + (not tc)},
+                  f"ssd {name} {dtype} took the wrong path")
             wy, wst = ssd_chunked(x.float(), dt, a, bm.float(), c.float(),
                                   chunk=chunk, init_state=st0)
             torch.cuda.synchronize()
@@ -970,6 +1079,9 @@ def phase_mamba_serving(card):
         torch.cuda.synchronize()
         pre_s = time.perf_counter() - t0
         prefill_launches.append(_ssd_count())
+        check(_ssd_paths() == {"tc": cfg.n_layers, "fma": 0},
+              f"the bf16 prefill's SSD calls by path are {_ssd_paths()}, "
+              f"not {cfg.n_layers} tensor-core and 0 FMA")
         _zero_counts()
         gen_toks, step_ms = [nxt], []
         for i in range(MAMBA_DECODE_STEPS):
@@ -1185,7 +1297,8 @@ def phase_mamba_profile(cfg, params, card):
         del cache
         kernels, busy, by_name = _profile_summary(prof, steps)
         total = sum(t for t, _ in by_name.values())
-        ssd_ms = sum(t for n, (t, _) in by_name.items() if "ssd_kernel" in n)
+        ssd_ms = sum(t for n, (t, _) in by_name.items()
+                     if re.search(r"ssd_\w*kernel", n))
         top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
         print(f"[8] mamba {what} " + json.dumps({
             "card": card, "model": "mamba2-1.3b (random weights, bf16)",
@@ -1206,9 +1319,11 @@ def _kernel_name(mangled: str) -> str:
     """``name<type,ints>`` (or ``name<ints>`` for the bf16-only tensor-core
     kernels) from a mangled kernel name."""
     k = re.search(r"\d+([a-z]+(?:_[a-z]+)*_kernel)"
-                  r"I(f|13__nv_bfloat16)?((?:Li\d+E)+)", mangled)
+                  r"(?:I(f|13__nv_bfloat16)?((?:Li\d+E)+))?", mangled)
     if not k:
         return mangled
+    if k.group(3) is None:
+        return k.group(1)
     ints = ",".join(re.findall(r"\d+", k.group(3)))
     dtype = {"f": "float,", "13__nv_bfloat16": "bf16,"}.get(k.group(2), "")
     return f"{k.group(1)}<{dtype}{ints}>"
@@ -1267,6 +1382,7 @@ def main() -> int:
     check(all(n == 0 for n in _flash_counts().values()),
           "the serving path launched a flash-attention kernel")
     check(_ssd_count() == 0, "the serving path launched the SSD kernel")
+    phase_h2o_serving(card)
     fa_launches, trainer, step_fn = phase_train(card)
     check(_ssd_count() == 0, "the training path launched the SSD kernel")
     ssd_launches, mcfg, mparams = phase_mamba_serving(card)

@@ -5,10 +5,15 @@
 // online-softmax attention that never writes the score matrix to device
 // memory, with an optional log-sum-exp output for the backward pass.
 //
-//   q    (B, H, Sq, D)   T, strided (see flash_common.cuh)
-//   k, v (B, K, Sk, D)   T, strided; query head h reads KV head h / (H / K)
-//   o    (B, H, Sq, D)   T, strided
+//   q    (B, H, Sq, d)   T, strided (see flash_common.cuh)
+//   k, v (B, K, Sk, d)   T, strided; query head h reads KV head h / (H / K)
+//   o    (B, H, Sq, d)   T, strided
 //   lse  (B, H, Sq)      float32, contiguous (may be null)
+//
+// Any head dim d <= 128 that is a multiple of 8 runs on the next built
+// width D (32, 64 or 128): the bf16 kernel's tensor maps give the columns
+// past d as zeros, the float32 kernel stages zeros there, and neither
+// stores them.
 //
 // Masking follows the reference: keys past Sk, after the query (causal) or
 // `window` or more behind it are replaced by -1e30 before the softmax, and
@@ -58,7 +63,7 @@ template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, T* __restrict__ o,
-              float* __restrict__ lse, int H, int G, int Sq, int Sk,
+              float* __restrict__ lse, int H, int G, int Sq, int Sk, int d,
               Strides sq, Strides sk, Strides sv, Strides so, int causal,
               int window, float scale) {
   constexpr int LD = D + kPad;
@@ -78,7 +83,7 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* kp = k + b * sk.b + kh * sk.h;
   const T* vp = v + b * sv.b + kh * sv.h;
 
-  load_tile<T, D>(q_s, qp, sq.s, q0, Sq);
+  load_tile<T, D>(q_s, qp, sq.s, q0, Sq, d);
 
   float m = kNegInf, l = 0.f;
   float acc[4 * kOut];
@@ -90,20 +95,20 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int k0 = kb * kBK;
     if (!tile_runs(q0, k0, causal, window)) continue;
     __syncthreads();                       // last tile's readers are done
-    load_tile<T, D>(k_s, kp, sk.s, k0, Sk);
-    load_tile<T, D>(v_s, vp, sv.s, k0, Sk);
+    load_tile<T, D>(k_s, kp, sk.s, k0, Sk, d);
+    load_tile<T, D>(v_s, vp, sv.s, k0, Sk, d);
     __syncthreads();
 
     float s[kCols];
 #pragma unroll
     for (int j = 0; j < kCols; ++j) s[j] = 0.f;
 #pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
-      const float4 qv = *reinterpret_cast<const float4*>(q_s + r * LD + d);
+    for (int dd = 0; dd < D; dd += 4) {
+      const float4 qv = *reinterpret_cast<const float4*>(q_s + r * LD + dd);
 #pragma unroll
       for (int j = 0; j < kCols; ++j)
         s[j] = dot4(qv, *reinterpret_cast<const float4*>(
-                            k_s + (sub + 4 * j) * LD + d), s[j]);
+                            k_s + (sub + 4 * j) * LD + dd), s[j]);
     }
     float mx = kNegInf;
 #pragma unroll
@@ -148,7 +153,8 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     T* op = o + b * so.b + h * so.h + qpos * so.s;
 #pragma unroll
     for (int i = 0; i < kOut; ++i)
-      store4(op + 16 * i + 4 * sub,
+      if (16 * i + 4 * sub < d)
+        store4(op + 16 * i + 4 * sub,
              make_float4(acc[4 * i] * inv, acc[4 * i + 1] * inv,
                          acc[4 * i + 2] * inv, acc[4 * i + 3] * inv));
     if (lse != nullptr && sub == 0)
@@ -175,17 +181,13 @@ struct FwdTile {
                                1024;              // + alignment slack
 };
 
-__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
-  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
-}
-
 template <int D>
 __global__ void __launch_bounds__(kTcThreads, 1)
 fa_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                     const __grid_constant__ CUtensorMap kmap,
                     const __grid_constant__ CUtensorMap vmap,
                     __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-                    int H, int G, int Sq, int Sk, Strides so, int causal,
+                    int H, int G, int Sq, int Sk, int d, Strides so, int causal,
                     int window, float scale_log2) {
   using L = Swz<D>;
   using Tl = FwdTile<D>;
@@ -330,7 +332,8 @@ fa_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
         for (int hh = 0; hh < L::kHalves; ++hh)
 #pragma unroll
           for (int j = 0; j < L::kW / 8; ++j)
-            *reinterpret_cast<uint32_t*>(op + hh * L::kW + 8 * j + c) =
+            if (hh * L::kW + 8 * j < d)
+              *reinterpret_cast<uint32_t*>(op + hh * L::kW + 8 * j + c) =
                 pack_bf16(acc[hh][4 * j + 2 * rr] * inv,
                           acc[hh][4 * j + 2 * rr + 1] * inv);
         if (lse != nullptr && (lane & 3) == 0)
@@ -344,13 +347,13 @@ fa_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 template <int D>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
                       void* lse, const long long* st, int B, int H, int K,
-                      int Sq, int Sk, int causal, int window, float scale,
-                      cudaStream_t stream) {
+                      int Sq, int Sk, int d, int causal, int window,
+                      float scale, cudaStream_t stream) {
   using Tl = FwdTile<D>;
   CUtensorMap qm, km, vm;
-  if (!tile_map<D>(&qm, q, B, H, Sq, st, Tl::kBQ) ||
-      !tile_map<D>(&km, k, B, K, Sk, st + 3, Tl::kBK) ||
-      !tile_map<D>(&vm, v, B, K, Sk, st + 6, Tl::kBK))
+  if (!tile_map<D>(&qm, q, B, H, Sq, st, Tl::kBQ, d) ||
+      !tile_map<D>(&km, k, B, K, Sk, st + 3, Tl::kBK, d) ||
+      !tile_map<D>(&vm, v, B, K, Sk, st + 6, Tl::kBK, d))
     return cudaErrorInvalidValue;
   auto kernel = fa_fwd_wgmma_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -359,7 +362,7 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
   dim3 grid((Sq + Tl::kBQ - 1) / Tl::kBQ, H, B);
   kernel<<<grid, kTcThreads, Tl::kSmem, stream>>>(
       qm, km, vm, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse),
-      H, H / K, Sq, Sk, Strides{st[9], st[10], st[11]}, causal, window,
+      H, H / K, Sq, Sk, d, Strides{st[9], st[10], st[11]}, causal, window,
       scale * kLog2e);
   return cudaGetLastError();
 }
@@ -367,7 +370,7 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    void* lse, const long long* st, int B, int H, int K,
-                   int Sq, int Sk, int causal, int window, float scale,
+                   int Sq, int Sk, int d, int causal, int window, float scale,
                    cudaStream_t stream) {
   constexpr int smem = (3 * 64 * (D + kPad) + 64 * (kBK + kPad)) * 4;
   auto kernel = fa_fwd_kernel<T, D>;
@@ -378,19 +381,21 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o),
-      static_cast<float*>(lse), H, H / K, Sq, Sk,
+      static_cast<float*>(lse), H, H / K, Sq, Sk, d,
       Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]},
       Strides{st[6], st[7], st[8]}, Strides{st[9], st[10], st[11]}, causal,
       window, scale);
   return cudaGetLastError();
 }
 
-cudaError_t launch_d(int D, int dtype, const void* q, const void* k,
+// d runs on the next built width D (32, 64 or 128) with zero columns.
+cudaError_t launch_d(int d, int dtype, const void* q, const void* k,
                      const void* v, void* o, void* lse, const long long* st,
                      int B, int H, int K, int Sq, int Sk, int causal,
                      int window, float scale, cudaStream_t stream) {
-#define REPRO_FWD_ARGS q, k, v, o, lse, st, B, H, K, Sq, Sk, causal, window, \
-                       scale, stream
+#define REPRO_FWD_ARGS q, k, v, o, lse, st, B, H, K, Sq, Sk, d, causal, \
+                       window, scale, stream
+  const int D = built_width(d);
   if (dtype == 0 && D == 32) return launch<float, 32>(REPRO_FWD_ARGS);
   if (dtype == 0 && D == 64) return launch<float, 64>(REPRO_FWD_ARGS);
   if (dtype == 0 && D == 128) return launch<float, 128>(REPRO_FWD_ARGS);
@@ -404,7 +409,7 @@ cudaError_t launch_d(int D, int dtype, const void* q, const void* k,
 }  // namespace
 
 // strides: 12 int64 element strides, (b, head, s) of q, k, v and o in that
-// order.  dtype: 0 = float32 (fa_fwd_kernel), 1 = bfloat16
+// order.  D: the head dim, any multiple of 8 up to 128.  dtype: 0 = float32 (fa_fwd_kernel), 1 = bfloat16
 // (fa_fwd_wgmma_kernel, which also needs every stride a multiple of 8
 // elements and 16-byte aligned bases for its tensor maps).  lse may be
 // null.  Returns the launch's cudaError_t (0 on success); the Python

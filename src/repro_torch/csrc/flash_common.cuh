@@ -11,8 +11,11 @@
 // columns, so the four threads of a row are neighbouring lanes of one warp
 // and reduce a row with two shuffles.
 //
-// Tensors are (B, heads, S, D) as seen by the caller, given by element
-// strides for b, head and s; d is contiguous.  The wrappers check that
+// Tensors are (B, heads, S, d) as seen by the caller, given by element
+// strides for b, head and s; d is contiguous.  Every kernel is built for a
+// width D of 32, 64 or 128 and takes any d <= D that is a multiple of 8:
+// the columns at or past d are staged as zeros (they change no product)
+// and never stored.  The wrappers check that
 // every stride is a multiple of 16 bytes (4 float32 or 8 bf16 elements,
 // as TMA needs) and every base 16-byte aligned, so a row chunk of 4
 // elements is one vector load.
@@ -33,6 +36,15 @@ constexpr float kNegInf = -1e30f;  // the reference's NEG_INF: finite
 struct Strides {
   long long b, h, s;
 };
+
+// The width a head dim d runs at: the next of 32, 64 and 128, or 0 for a d
+// the kernels do not take (not a multiple of 8, or over 128).
+__host__ __device__ constexpr int built_width(int d) {
+  return d <= 0 || d % 8 != 0 || d > 128 ? 0
+         : d <= 32                       ? 32
+         : d <= 64                       ? 64
+                                         : 128;
+}
 
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
@@ -83,17 +95,20 @@ __device__ __forceinline__ float row_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// Stage rows [row0, row0 + 64) of one (b, head) slice into dst (64 rows of
-// D + kPad floats); rows at or past n_rows read as 0 and are never loaded.
+// Stage rows [row0, row0 + 64) of one (b, head) slice of head dim d into
+// dst (64 rows of D + kPad floats, D the built width >= d); rows at or past
+// n_rows and columns at or past d read as 0 and are never loaded (d is a
+// multiple of 8, so a 4-column chunk is wholly inside or outside).
 template <typename T, int D>
 __device__ __forceinline__ void load_tile(float* dst, const T* base,
                                           long long row_stride, int row0,
-                                          int n_rows) {
+                                          int n_rows, int d) {
   constexpr int kV = D / 4;
   for (int i = threadIdx.x; i < 64 * kV; i += kThreads) {
     const int r = i / kV, c = (i % kV) * 4;
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < n_rows) x = load4(base + (row0 + r) * row_stride + c);
+    if (row0 + r < n_rows && c < d)
+      x = load4(base + (row0 + r) * row_stride + c);
     store4(dst + r * (D + kPad) + c, x);
   }
 }

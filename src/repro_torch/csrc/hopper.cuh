@@ -1,5 +1,5 @@
-// Hopper (sm_90a) building blocks of the tensor-core flash-attention
-// kernels: mbarriers, TMA tile loads, wgmma shared-memory descriptors and
+// Hopper (sm_90a) building blocks of the tensor-core flash-attention and
+// SSD kernels: mbarriers, TMA tile loads, wgmma shared-memory descriptors and
 // the wgmma instructions themselves, written as inline PTX.
 //
 // Tiles.  A bf16 tile of `rows` x D sits in shared memory as D / kW
@@ -42,6 +42,12 @@ struct Swz {
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The first 1024-byte boundary at or after p (dynamic shared memory is
+// only 16-byte aligned; swizzled tiles need 1024).
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
 }
 
 // ------------------------------------------------------------- mbarriers
@@ -145,6 +151,32 @@ __device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int rows, int half,
                    L::kLayout, L::kAtom);
 }
 
+// The shared address of element (r, col) of a bf16 tile of `rows` rows laid
+// out as Swz<D>, for tiles that threads write themselves: the swizzle TMA
+// writes and wgmma reads (within a sub-tile, the 16-byte chunk index XOR
+// the row's place in its 8-row atom).
+template <int D>
+__device__ __forceinline__ uint32_t swz_addr(uint32_t tile, int rows, int r,
+                                             int col) {
+  using L = Swz<D>;
+  const uint32_t o = r * L::kRowBytes + (col % L::kW) * 2;
+  return tile + (col / L::kW) * rows * L::kRowBytes +
+         (o ^ ((o >> 3) & (L::kRowBytes == 128 ? 0x70u : 0x30u)));
+}
+
+// A 16-byte store to shared memory, and the fence that makes such stores
+// (the generic proxy) visible to wgmma (the async proxy): between the
+// stores and the barrier that precedes the product.
+__device__ __forceinline__ void sts128(uint32_t addr, uint4 v) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+               "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+               : "memory");
+}
+
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // Move registers between warpgroups: the producer gives its share up, the
 // consumers take it (each count a multiple of 8, at most 256; the pool is
 // 65,536 a multiprocessor).
@@ -215,8 +247,33 @@ __device__ __forceinline__ void to_a_frags(const float (&d)[N / 2],
       a[kk][r] = pack_bf16(d[8 * kk + 2 * r], d[8 * kk + 2 * r + 1]);
 }
 
+// A float pair as bf16 hi + lo: hi the nearest bf16 pair, lo that of the
+// remainder, so hi + lo keeps about 16 bits of each value's mantissa.
+__device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(x - hf.x, y - hf.y);
+}
+
+// The register A fragments of a 64 x N float accumulator as bf16 hi + lo.
+template <int N>
+__device__ __forceinline__ void to_a_frags2(const float (&d)[N / 2],
+                                            uint32_t (&hi)[N / 16][4],
+                                            uint32_t (&lo)[N / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      split_bf16(d[8 * kk + 2 * r], d[8 * kk + 2 * r + 1], hi[kk][r],
+                 lo[kk][r]);
+}
+
 // d (64 x 32) = [d +] a (64 x 16) b (16 x 32); a and b from shared memory,
-// both K-major.
+// K-major, or MN-major where TA / TB is 1 (an MN-major a is described as
+// desc_mn describes b: 16 rows of K, 64 columns of M).
+template <int TA = 0, int TB = 0>
 __device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t a,
                                          uint64_t b, int accumulate) {
   asm volatile(
@@ -224,16 +281,16 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t a,
       "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
       "%12, %13, %14, %15}, "
-      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      "%16, %17, p, 1, 1, %19, %20;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
         "+f"(d[15])
-      : "l"(a), "l"(b), "r"(accumulate));
+      : "l"(a), "l"(b), "r"(accumulate), "n"(TA), "n"(TB));
 }
 
-// d (64 x 64) = [d +] a (64 x 16) b (16 x 64); a and b from shared memory,
-// both K-major.
+// d (64 x 64) = [d +] a (64 x 16) b (16 x 64); as above.
+template <int TA = 0, int TB = 0>
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
                                          uint64_t b, int accumulate) {
   asm volatile(
@@ -242,7 +299,7 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
       "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
       "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      "%32, %33, p, 1, 1, %35, %36;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -250,11 +307,11 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(accumulate));
+      : "l"(a), "l"(b), "r"(accumulate), "n"(TA), "n"(TB));
 }
 
-// d (64 x 128) = [d +] a (64 x 16) b (16 x 128); a and b from shared memory,
-// both K-major.
+// d (64 x 128) = [d +] a (64 x 16) b (16 x 128); as above.
+template <int TA = 0, int TB = 0>
 __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a,
                                          uint64_t b, int accumulate) {
   asm volatile(
@@ -266,7 +323,7 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a,
       "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
       "%60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      "%64, %65, p, 1, 1, %67, %68;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -280,7 +337,7 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a,
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(accumulate));
+      : "l"(a), "l"(b), "r"(accumulate), "n"(TA), "n"(TB));
 }
 
 // d (64 x 32) = [d +] a (64 x 16, bf16 pairs in registers) b (16 x 32); b
@@ -346,24 +403,27 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The tensor map of a bf16 (B, heads, S, D) tensor given by its element
-// strides st = (b, head, s), d contiguous, read in boxes of `rows` x kW.
-// A dimension of size 1 is never stepped, so its stride is replaced by a
-// valid one.  Returns false if the driver refuses the map.
+// The tensor map of a bf16 (B, heads, S, d) tensor given by its element
+// strides st = (b, head, s), d contiguous, read in boxes of `rows` x kW
+// into tiles D wide.  d (a multiple of 8, at most D) is the tensor's own
+// extent: the columns of a box at or past d arrive as zeros
+// (CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE), so a D-wide product over them adds
+// nothing.  A dimension of size 1 is never stepped, so its stride is
+// replaced by a valid one.  Returns false if the driver refuses the map.
 template <int D>
 inline bool tile_map(CUtensorMap* map, const void* base, int B, int heads,
-                     int S, const long long* st, int rows) {
+                     int S, const long long* st, int rows, int d) {
   using L = Swz<D>;
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
   const long long n[3] = {S, heads, B}, el[3] = {st[2], st[1], st[0]};
-  cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+  cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
                         static_cast<cuuint64_t>(S),
                         static_cast<cuuint64_t>(heads),
                         static_cast<cuuint64_t>(B)};
   cuuint64_t strides[3];
   for (int i = 0; i < 3; ++i)
-    strides[i] = static_cast<cuuint64_t>(n[i] > 1 ? el[i] * 2 : D * 2);
+    strides[i] = static_cast<cuuint64_t>(n[i] > 1 ? el[i] * 2 : d * 2);
   cuuint32_t box[4] = {static_cast<cuuint32_t>(L::kW),
                        static_cast<cuuint32_t>(rows), 1, 1};
   cuuint32_t unit[4] = {1, 1, 1, 1};

@@ -5,17 +5,21 @@
 // per sequence attends over KV that lives in a paged pool, walking the
 // sequence's row of the MMU block table.
 //
-//   q       (B, H, D)          T, contiguous
-//   k, v    (P, page, K, D)    T, contiguous (a per-layer view of the pool)
+//   q       (B, H, d)          T, contiguous
+//   k, v    (P, page, K, d)    T, contiguous (a per-layer view of the pool)
 //   tables  (B, maxp)          int32 physical page ids, -1 = unmapped
 //   lens    (B,)               int32 valid tokens per sequence
-//   out     (B, H, D)          T
+//   out     (B, H, d)          T
+//
+// d is any multiple of 8 up to 128; it runs on the next built width D (32,
+// 64 or 128): each lane keeps D/32 accumulator elements, those at or past
+// d never loaded, summed or stored.
 //
 // The G = H / K query heads of KV head kh are heads kh*G .. kh*G+G-1 (the
 // reference reshapes q to (B, K, G, D)).  Positions at or past lens[b] are
 // masked; a page whose table entry is -1 is skipped without being read
 // (the TPU kernel fetched page 0 in its place and masked it).  The softmax
-// runs online in float32 with scale 1/sqrt(D) unless the caller gives one;
+// runs online in float32 with scale 1/sqrt(d) unless the caller gives one;
 // a row with no valid position writes exactly 0.
 //
 // Design (first version: simple and right).  One block per (b, kh, group of
@@ -72,7 +76,8 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
                        const int* __restrict__ tables,
                        const int* __restrict__ lens, T* __restrict__ out,
                        float* __restrict__ ws, int H, int K, int G, int P,
-                       int page, int maxp, int split_pages, float scale) {
+                       int page, int maxp, int split_pages, int d,
+                       float scale) {
   constexpr int E = D / 32;                // accumulator elements per lane
   __shared__ float k_s[kTile][D + 1];      // +1: lane t reads row t, no
   __shared__ float v_s[kTile][D];          //     bank conflicts
@@ -88,10 +93,10 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   const int g = (blockIdx.y % chunks) * wpb + warp;
   const bool active = g < G;               // last group may be partial
   const int h = kh * G + g;
-  const size_t qo = (static_cast<size_t>(b) * H + h) * D;
+  const size_t qo = (static_cast<size_t>(b) * H + h) * d;
 
   if (active)
-    for (int d = lane; d < D; d += 32) q_s[warp][d] = to_float(q[qo + d]);
+    for (int c = lane; c < d; c += 32) q_s[warp][c] = to_float(q[qo + c]);
 
   float m = kNegInf, l = 0.f, acc[E];
 #pragma unroll
@@ -101,7 +106,7 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   const int n_pages = len > 0 ? min((len + page - 1) / page, maxp) : 0;
   const int j_end = min(n_pages, (blockIdx.z + 1) * split_pages);
   const int* row = tables + static_cast<size_t>(b) * maxp;
-  const size_t tok = static_cast<size_t>(K) * D;   // stride between tokens
+  const size_t tok = static_cast<size_t>(K) * d;   // stride between tokens
 
   // every branch below depends on (b, j) only: uniform over the block, so
   // the __syncthreads inside the loops are reached by all threads
@@ -110,15 +115,15 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
     if (pp < 0 || pp >= P) continue;               // unmapped: never read
     const int valid = min(page, len - j * page);
     const size_t base = static_cast<size_t>(pp) * page * tok +
-                        static_cast<size_t>(kh) * D;
+                        static_cast<size_t>(kh) * d;
     for (int t0 = 0; t0 < valid; t0 += kTile) {
       const int n = min(kTile, valid - t0);
       __syncthreads();                             // last tile consumed
-      for (int i = threadIdx.x; i < n * D; i += blockDim.x) {
-        const int t = i / D, d = i % D;
-        const size_t off = base + static_cast<size_t>(t0 + t) * tok + d;
-        k_s[t][d] = to_float(k_pages[off]);
-        v_s[t][d] = to_float(v_pages[off]);
+      for (int i = threadIdx.x; i < n * d; i += blockDim.x) {
+        const int t = i / d, c = i % d;
+        const size_t off = base + static_cast<size_t>(t0 + t) * tok + c;
+        k_s[t][c] = to_float(k_pages[off]);
+        v_s[t][c] = to_float(v_pages[off]);
       }
       __syncthreads();
       if (!active) continue;
@@ -126,7 +131,7 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
       if (lane < n) {
         float dot = 0.f;
 #pragma unroll 8
-        for (int d = 0; d < D; ++d) dot += q_s[warp][d] * k_s[lane][d];
+        for (int c = 0; c < d; ++c) dot += q_s[warp][c] * k_s[lane][c];
         s = dot * scale;
       }
       const float m_new = fmaxf(m, warp_max(s));  // finite: n >= 1
@@ -137,6 +142,7 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
       __syncwarp();
 #pragma unroll
       for (int e = 0; e < E; ++e) {
+        if (lane + 32 * e >= d) continue;          // the tail past d
         float a = 0.f;
         for (int t = 0; t < n; ++t) a += p_s[warp][t] * v_s[t][lane + 32 * e];
         acc[e] = acc[e] * alpha + a;
@@ -148,18 +154,20 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   if (gridDim.z == 1) {
     const float inv = l > 0.f ? 1.f / l : 0.f;     // empty row -> exactly 0
 #pragma unroll
-    for (int e = 0; e < E; ++e) store(&out[qo + lane + 32 * e], acc[e] * inv);
+    for (int e = 0; e < E; ++e)
+      if (lane + 32 * e < d) store(&out[qo + lane + 32 * e], acc[e] * inv);
     return;
   }
-  // partial result of this split: ws row (b, h, split) = [m, l, acc[D]]
+  // partial result of this split: ws row (b, h, split) = [m, l, acc[d]]
   float* w = ws + ((static_cast<size_t>(b) * H + h) * gridDim.z +
-                   blockIdx.z) * (D + 2);
+                   blockIdx.z) * (d + 2);
   if (lane == 0) {
     w[0] = m;
     w[1] = l;
   }
 #pragma unroll
-  for (int e = 0; e < E; ++e) w[2 + lane + 32 * e] = acc[e];
+  for (int e = 0; e < E; ++e)
+    if (lane + 32 * e < d) w[2 + lane + 32 * e] = acc[e];
 }
 
 // Combine the splits of each (b, h): one warp per output row.  A split that
@@ -168,35 +176,37 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
 template <typename T, int D>
 __global__ void __launch_bounds__(kWarps * 32)
 combine_kernel(const float* __restrict__ ws, T* __restrict__ out, int rows,
-               int splits) {
+               int splits, int d) {
   constexpr int E = D / 32;
   const int row = blockIdx.x * kWarps + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (row >= rows) return;
-  const float* w = ws + static_cast<size_t>(row) * splits * (D + 2);
+  const float* w = ws + static_cast<size_t>(row) * splits * (d + 2);
   float mx = kNegInf;
-  for (int s = 0; s < splits; ++s) mx = fmaxf(mx, w[s * (D + 2)]);
+  for (int s = 0; s < splits; ++s) mx = fmaxf(mx, w[s * (d + 2)]);
   float l = 0.f, acc[E];
 #pragma unroll
   for (int e = 0; e < E; ++e) acc[e] = 0.f;
   for (int s = 0; s < splits; ++s) {
-    const float* ws_s = w + s * (D + 2);
+    const float* ws_s = w + s * (d + 2);
     const float c = expf(ws_s[0] - mx);
     l += c * ws_s[1];
 #pragma unroll
-    for (int e = 0; e < E; ++e) acc[e] += c * ws_s[2 + lane + 32 * e];
+    for (int e = 0; e < E; ++e)
+      if (lane + 32 * e < d) acc[e] += c * ws_s[2 + lane + 32 * e];
   }
   const float inv = l > 0.f ? 1.f / l : 0.f;
 #pragma unroll
   for (int e = 0; e < E; ++e)
-    store(&out[static_cast<size_t>(row) * D + lane + 32 * e], acc[e] * inv);
+    if (lane + 32 * e < d)
+      store(&out[static_cast<size_t>(row) * d + lane + 32 * e], acc[e] * inv);
 }
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* tables, const void* lens, void* out, void* ws,
                    int B, int H, int K, int P, int page, int maxp, int splits,
-                   float scale, cudaStream_t stream) {
+                   int d, float scale, cudaStream_t stream) {
   const int G = H / K;
   const int warps = G < kWarps ? G : kWarps;
   const int split_pages = (maxp + splits - 1) / splits;
@@ -205,41 +215,37 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int*>(tables),
       static_cast<const int*>(lens), static_cast<T*>(out),
-      static_cast<float*>(ws), H, K, G, P, page, maxp, split_pages, scale);
+      static_cast<float*>(ws), H, K, G, P, page, maxp, split_pages, d, scale);
   if (splits > 1) {
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     const int rows = B * H;
     combine_kernel<T, D><<<(rows + kWarps - 1) / kWarps, kWarps * 32, 0,
                            stream>>>(static_cast<const float*>(ws),
-                                     static_cast<T*>(out), rows, splits);
+                                     static_cast<T*>(out), rows, splits, d);
   }
   return cudaGetLastError();
 }
 
+// d runs on the next built width: 32, 64 or 128.
 template <typename T>
-cudaError_t launch_d(int D, const void* q, const void* k, const void* v,
+cudaError_t launch_d(int d, const void* q, const void* k, const void* v,
                      const void* tables, const void* lens, void* out,
                      void* ws, int B, int H, int K, int P, int page, int maxp,
                      int splits, float scale, cudaStream_t stream) {
-  switch (D) {
-    case 32:
-      return launch<T, 32>(q, k, v, tables, lens, out, ws, B, H, K, P, page,
-                           maxp, splits, scale, stream);
-    case 64:
-      return launch<T, 64>(q, k, v, tables, lens, out, ws, B, H, K, P, page,
-                           maxp, splits, scale, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, tables, lens, out, ws, B, H, K, P, page,
-                            maxp, splits, scale, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
+#define REPRO_PA_ARGS q, k, v, tables, lens, out, ws, B, H, K, P, page, maxp, \
+                      splits, d, scale, stream
+  if (d <= 0 || d % 8 != 0 || d > 128) return cudaErrorInvalidValue;
+  if (d <= 32) return launch<T, 32>(REPRO_PA_ARGS);
+  if (d <= 64) return launch<T, 64>(REPRO_PA_ARGS);
+  return launch<T, 128>(REPRO_PA_ARGS);
+#undef REPRO_PA_ARGS
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  splits: blocks each row's pages are
+// D: the head dim, any multiple of 8 up to 128.  dtype: 0 = float32, 1 =
+// bfloat16.  splits: blocks each row's pages are
 // divided over; with splits > 1, ws is a float32 workspace of
 // B * H * splits * (D + 2) elements.  Returns the launches' cudaError_t (0
 // on success); the Python wrapper raises on anything else.  Shapes, dtypes

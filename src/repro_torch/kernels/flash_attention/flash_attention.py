@@ -21,7 +21,11 @@ picks the kernel:
 * float32: ``fa_fwd_kernel``, float32 FMA on the CUDA cores, because a
   float32 input is held to atol 2e-5, which TF32 products cannot meet.
 
-Both keep scores out of device memory, index the KV head as
+Any head dim that is a multiple of 8 up to 128 runs, on the next built
+width (32, 64 or 128): the bf16 kernels' tensor maps give the columns past
+d as zeros, the float32 kernels stage zeros there, and no column past d
+is stored; the softmax scale stays 1/sqrt(d).  Both keep scores out of
+device memory, index the KV head as
 ``h // group`` without repeating KV, skip tile pairs that the causal or
 window mask removes whole, and keep the softmax state in float32.  They
 read every tensor through its strides (d contiguous), so the model's
@@ -39,14 +43,13 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, built_width, readable
 
 LAUNCHES = 0
 WGMMA_LAUNCHES = 0          # bf16: fa_fwd_wgmma_kernel
 FMA_LAUNCHES = 0            # float32: fa_fwd_kernel
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 128)
 _FN = None
 
 
@@ -60,17 +63,6 @@ def _fn():
         fn.restype = ctypes.c_int
         _FN = fn
     return _FN
-
-
-def readable(t: torch.Tensor) -> torch.Tensor:
-    """``t`` itself when the kernels can read it through its strides, else
-    a contiguous copy: d contiguous, the base 16-byte aligned and every
-    other stride a multiple of 16 bytes (4 float32 elements for the FMA
-    kernels' vector loads, 8 bf16 elements for the tensor maps of TMA)."""
-    ok = (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
-          and all(s * t.element_size() % 16 == 0
-                  for n, s in zip(t.shape[:-1], t.stride()[:-1]) if n > 1))
-    return t if ok else t.contiguous()
 
 
 def strides(*tensors) -> ctypes.Array:
@@ -97,10 +89,10 @@ def check_qkv(name: str, q, k, v, *more):
                          "(B, K, Sk, D)")
     b, h, sq, d = q.shape
     _, kh, sk, _ = k.shape
-    if k.shape[0] != b or k.shape[3] != d or d not in HEAD_DIMS:
+    if k.shape[0] != b or k.shape[3] != d or built_width(d) is None:
         raise ValueError(f"{name}: k/v {tuple(k.shape)} do not match q "
-                         f"{tuple(q.shape)}, or head_dim {d} is not in "
-                         f"{HEAD_DIMS}")
+                         f"{tuple(q.shape)}, or head_dim {d} is not a "
+                         "multiple of 8 up to 128")
     if kh == 0 or h % kh:
         raise ValueError(f"{name}: {h} query heads do not group over {kh} "
                          "KV heads")

@@ -13,18 +13,18 @@ What bounds them on an H100: their arithmetic, ``6 * D`` (dq) and
 ``8 * D`` (dkv) flops for every visible (query, key) pair, over the tensor
 cores' 989 TFLOP/s in bf16.  The dq kernel computes D once per row and
 writes it to a float32 buffer that the dkv kernel, launched after it on
-the same stream, reads.  The dq kernel runs float32 FMA on the CUDA cores
-for both dtypes.  The dkv kernel is picked by dtype: bf16 runs
-``fa_dkv_wgmma_kernel``, whose four products are ``wgmma`` on the tensor
-cores fed by TMA (P^T and dS^T rounded to bf16 for the last two, so its
-tolerance is ``ref.bf16_dkv_bound``); float32 runs ``fa_dkv_kernel`` in
-float32 FMA.
+the same stream, reads.  Both kernels are picked by dtype.  bf16 runs
+``fa_dq_wgmma_kernel`` and ``fa_dkv_wgmma_kernel``, whose products are
+``wgmma`` on the tensor cores fed by TMA; dq rounds dS to bf16 for its
+last product and dkv rounds P^T and dS^T for its last two, so their
+tolerances are ``ref.bf16_dq_bound`` and ``ref.bf16_dkv_bound``.  float32
+runs ``fa_dq_kernel`` and ``fa_dkv_kernel`` in float32 FMA.
 
 These wrappers launch or raise: they never fall back to the plain version
 (``ref.attention_bwd_ref``), and they do not synchronise.
 ``DQ_LAUNCHES`` and ``DKV_LAUNCHES`` count each kernel's launches,
-``DKV_WGMMA_LAUNCHES`` and ``DKV_FMA_LAUNCHES`` the dkv launches by
-kernel.
+``DQ_WGMMA_LAUNCHES``, ``DQ_FMA_LAUNCHES``, ``DKV_WGMMA_LAUNCHES`` and
+``DKV_FMA_LAUNCHES`` the launches by kernel.
 """
 from __future__ import annotations
 
@@ -39,6 +39,8 @@ from repro_torch.kernels.flash_attention.flash_attention import (
     DTYPES, check_lse, check_qkv, is_wgmma, readable, run, strides)
 
 DQ_LAUNCHES = 0
+DQ_WGMMA_LAUNCHES = 0       # bf16: fa_dq_wgmma_kernel
+DQ_FMA_LAUNCHES = 0         # float32: fa_dq_kernel
 DKV_LAUNCHES = 0
 DKV_WGMMA_LAUNCHES = 0      # bf16: fa_dkv_wgmma_kernel
 DKV_FMA_LAUNCHES = 0        # float32: fa_dkv_kernel
@@ -70,7 +72,7 @@ def flash_attention_dq(q, k, v, o, do, lse, *, causal: bool = True,
                        window: int = 0, sm_scale: Optional[float] = None):
     """-> (dq (B, H, Sq, D) in q's dtype and layout, delta (B, H, Sq)
     float32 = rowsum(do * o), which ``flash_attention_dkv`` takes)."""
-    global DQ_LAUNCHES
+    global DQ_LAUNCHES, DQ_WGMMA_LAUNCHES, DQ_FMA_LAUNCHES
     check_qkv("flash_attention_dq", q, k, v, o, do)
     check_lse("flash_attention_dq", lse, q)
     q, k, v, o, do = (readable(t) for t in (q, k, v, o, do))
@@ -80,6 +82,10 @@ def flash_attention_dq(q, k, v, o, do, lse, *, causal: bool = True,
     delta = torch.empty_like(lse)
     if q.numel():
         DQ_LAUNCHES += 1
+        if is_wgmma(q):
+            DQ_WGMMA_LAUNCHES += 1
+        else:
+            DQ_FMA_LAUNCHES += 1
         run(_fn("dq"), q.device, _ptrs(q, k, v, o, do, lse, dq, delta),
             strides(q, k, v, o, do, dq), b, h, kh, sq, sk, d, int(causal),
             int(window), _scale(q, sm_scale), DTYPES[q.dtype])

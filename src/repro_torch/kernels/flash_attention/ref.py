@@ -82,19 +82,24 @@ def attention_bwd_ref(q, k, v, o, do, lse, *, causal: bool = True,
             dv.to(v.dtype))
 
 
-# The bf16 dkv kernel's tolerance.  It rounds P^T and dS^T to bf16 (unit
-# roundoff u = 2^-9) as the register operands of dV += P^T dO and
-# dK += dS^T q, as every tensor-core flash backward does; q and dO are the
-# same bf16 values in both versions.  So each term of dv moves by at most
-# u * P |dO| and each term of dk by u * scale * |dS| |q|, in all
-#   |dv - ref| <= u P^T |dO|,   |dk - ref| <= u scale |dS|^T |q|.
+# The bf16 backward kernels' tolerances.  They round P^T and dS^T (dkv)
+# and dS (dq) to bf16 (unit roundoff u = 2^-9) as the register operands of
+# dV += P^T dO, dK += dS^T q and dq += dS k, as every tensor-core flash
+# backward does; q, k and dO are the same bf16 values in both versions.
+# So each term of dv moves by at most u * P |dO|, each term of dk by
+# u * scale * |dS| |q| and each term of dq by u * scale * |dS| |k|, in all
+#   |dv - ref| <= u P^T |dO|,   |dk - ref| <= u scale |dS|^T |q|,
+#   |dq - ref| <= u scale |dS| |k|.
 # Twice u (2^-8) covers that rounding with room for the float32 sums'
 # order and exp2 against exp; 2^-8 |ref| covers the one bf16 rounding of
 # the stored gradient (u of its value); 5e-4 is the float32 gradients'
-# atol (the reference's backward tests).  dq is not rounded on the way
-# (its kernel is float32 FMA) and keeps atol 5e-4 + rtol 2^-8.
+# atol (the reference's backward tests).
 GRAD_ATOL = 5e-4
 BF16_TERM = 2.0 ** -8
+
+
+def _scale_of(q, sm_scale):
+    return 1.0 / math.sqrt(q.shape[-1]) if sm_scale is None else sm_scale
 
 
 def bf16_dkv_bound(q, k, v, o, do, lse, *, causal: bool = True,
@@ -102,9 +107,7 @@ def bf16_dkv_bound(q, k, v, o, do, lse, *, causal: bool = True,
     """-> (dk bound, dv bound), float32 (B, K, Sk, D): the elementwise
     bounds on |dk - ref| and |dv - ref| of the bf16 dkv kernel, where ref is
     this module's float32 plain version on the same (bf16) inputs."""
-    d = q.shape[-1]
-    if sm_scale is None:
-        sm_scale = 1.0 / math.sqrt(d)
+    sm_scale = _scale_of(q, sm_scale)
     p, ds, qf, dof = _bwd_terms(q, k, v, o, do, lse, causal, window,
                                 sm_scale)
     dk = torch.einsum("bkgqs,bkgqd->bksd", ds, qf) * sm_scale
@@ -113,3 +116,17 @@ def bf16_dkv_bound(q, k, v, o, do, lse, *, causal: bool = True,
     dv_rounding = torch.einsum("bkgqs,bkgqd->bksd", p, dof.abs())
     return (BF16_TERM * (sm_scale * dk_rounding + dk.abs()) + GRAD_ATOL,
             BF16_TERM * (dv_rounding + dv.abs()) + GRAD_ATOL)
+
+
+def bf16_dq_bound(q, k, v, o, do, lse, *, causal: bool = True,
+                  window: int = 0, sm_scale: Optional[float] = None):
+    """-> float32 (B, H, Sq, D): the elementwise bound on |dq - ref| of the
+    bf16 dq kernel, ref as for ``bf16_dkv_bound``."""
+    b, h, sq, d = q.shape
+    sm_scale = _scale_of(q, sm_scale)
+    _, ds, _, _ = _bwd_terms(q, k, v, o, do, lse, causal, window, sm_scale)
+    kf = k.float()
+    dq = torch.einsum("bkgqs,bksd->bkgqd", ds, kf) * sm_scale
+    rounding = torch.einsum("bkgqs,bksd->bkgqd", ds.abs(), kf.abs())
+    bound = BF16_TERM * (sm_scale * rounding + dq.abs()) + GRAD_ATOL
+    return bound.reshape(b, h, sq, d)

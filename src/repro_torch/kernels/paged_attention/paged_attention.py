@@ -13,7 +13,9 @@ arithmetic (``4 * H * D`` flops per cached token) is far below the
 tensor-core line.  The design reads each valid page once per (row, KV
 head, split) block and shares it across the ``H // K`` query heads of the
 group, skips unmapped (-1) pages without touching them, and keeps the
-online softmax state in float32 registers.  A row's pages are split over
+online softmax state in float32 registers.  Any head dim that is a
+multiple of 8 up to 128 runs, on the next built width (32, 64, 128) with
+a masked tail; the rest raise.  A row's pages are split over
 enough blocks to put about ``BLOCKS_PER_SM`` blocks on every SM
 (flash-decoding); a second kernel combines the splits' partial softmax
 states from a float32 workspace.  Vector loads and cp.async/TMA
@@ -31,12 +33,11 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, built_width
 
 LAUNCHES = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 128)
 BLOCKS_PER_SM = 4
 _WARPS = 4                     # query heads per block (csrc kWarps)
 _FN = None
@@ -92,9 +93,10 @@ def _check(q, k_pages, v_pages, block_tables, seq_lens):
                          "pools (P, page, K, D)")
     b, h, d = q.shape
     kh = k_pages.shape[2]
-    if k_pages.shape[3] != d or d not in HEAD_DIMS:
+    if k_pages.shape[3] != d or built_width(d) is None:
         raise ValueError(f"paged_attention: head_dim {d} (pool "
-                         f"{k_pages.shape[3]}) not in {HEAD_DIMS}")
+                         f"{k_pages.shape[3]}) is not a multiple of 8 up to "
+                         "128")
     if kh == 0 or h % kh:
         raise ValueError(f"paged_attention: {h} query heads do not group "
                          f"over {kh} KV heads")

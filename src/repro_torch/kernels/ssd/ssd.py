@@ -8,22 +8,30 @@ use (:mod:`repro_torch.kernels._build`) and bound through ``ctypes``.
 
 What bounds it on an H100 at the main prefill shape: bytes and operations
 about equally (86 GFLOP of visible work, 298 MB of least traffic in
-bf16).  The design keeps the float32 (P, N) state in shared memory across
-the chunks of one (batch row, head), tiles each chunk into 64-row tiles
-(32 when the chunk is 32) so that no L x L matrix is ever held, computes
-the decay only where it is visible, and runs float32 FMA on the CUDA
-cores: at the main shape 139,264 bytes of shared memory (one block per
-SM) and, by ptxas, 206 registers with no spill.  wgmma and a
-chunk-parallel scan are later work.
+bf16).  The input's dtype picks the kernels:
 
-The kernel reads x, B and C through their strides (last dimension
-contiguous), so ``mamba_apply``'s views split out of the convolution's
-output go in with no copy; dt may be strided too.  A ragged S is handled
+* bf16: the chunk-parallel SSD split, four kernels on one stream with
+  every product on ``wgmma``: C B^T once per (chunk, B/C group) for all
+  its heads (``ssd_cb_kernel``), each chunk's own state
+  (``ssd_state_kernel``), the serial hand-over of the state from chunk to
+  chunk (``ssd_pass_kernel``), and y (``ssd_scan_kernel``).  The float32
+  operands (the decayed scores, w B and the states) go through two bf16
+  products as hi + lo, which keeps the float32 tolerances.  Float32
+  workspaces (``workspace_sizes``) hold C B^T, the states, cum and dt.
+* float32: ``ssd_kernel``, one block per (head, batch row) walking the
+  chunks in float32 FMA with the state in shared memory.
+
+The kernels read x, B and C through their strides (last dimension
+contiguous, 16-byte aligned rows, else a copy: ``kernels.readable``), so
+``mamba_apply``'s views split out of the convolution's output go in with
+no copy; dt may be strided too.  A ragged S is handled
 inside the kernel (positions past S count as dt = 0), with no padded copy.
 Shapes are fixed at build time: (P, N) in ``SHAPES`` and the chunk in
 ``CHUNKS``; anything else raises.  This wrapper launches or raises: it
 never falls back to the plain version (``ref.py``), and it does not
-synchronise.  ``LAUNCHES`` counts its launches.
+synchronise.  ``LAUNCHES`` counts its calls (one a call, whatever the
+number of CUDA kernels), ``TC_LAUNCHES`` and ``FMA_LAUNCHES`` those of
+each path.
 """
 from __future__ import annotations
 
@@ -32,9 +40,11 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, readable
 
 LAUNCHES = 0
+TC_LAUNCHES = 0             # bf16: the four tensor-core kernels
+FMA_LAUNCHES = 0            # float32: ssd_kernel
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 SHAPES = ((64, 128), (64, 64), (64, 32), (32, 16))     # (head_dim, d_state)
@@ -47,14 +57,19 @@ def _fn():
     if _FN is None:
         fn = _build.load("ssd").repro_ssd_scan
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 9 + [i] * 8 + [p]
+        fn.argtypes = [p] * 10 + [i] * 8 + [p]
         fn.restype = ctypes.c_int
         _FN = fn
     return _FN
 
 
-def _last_contiguous(t):
-    return t if t.stride(-1) == 1 else t.contiguous()
+def workspace_sizes(b, s, h, p, g, n, chunk):
+    """Float32 elements of the bf16 path's workspaces: C B^T (B, nc, G, LT,
+    LT), the states (B, nc, H, P, N), cum and dt (B, H, nc, LT) each, with
+    nc = ceil(S / L) chunks of LT = L rounded up to 64 rows."""
+    nc, lt = -(-s // chunk), -(-chunk // 64) * 64
+    return (b * nc * g * lt * lt, b * nc * h * p * n, b * h * nc * lt,
+            b * h * nc * lt)
 
 
 def _check(x, dt, A, Bm, C, chunk, init_state):
@@ -105,9 +120,9 @@ def ssd_scan(x, dt, A, Bm, C, *, chunk: int,
     negative; Bm, C (B,S,G,N) in x's dtype; init_state (B,H,P,N) float32
     or None for zeros.  Returns (y (B,S,H,P) in x's dtype, final state
     (B,H,P,N) float32)."""
-    global LAUNCHES
+    global LAUNCHES, TC_LAUNCHES, FMA_LAUNCHES
     _check(x, dt, A, Bm, C, chunk, init_state)
-    x, Bm, C = (_last_contiguous(t) for t in (x, Bm, C))
+    x, Bm, C = (readable(t) for t in (x, Bm, C))
     A = A.contiguous()
     b, s, h, p = x.shape
     g, n = Bm.shape[2], Bm.shape[3]
@@ -116,12 +131,20 @@ def ssd_scan(x, dt, A, Bm, C, *, chunk: int,
     st = torch.empty(b, h, p, n, dtype=torch.float32, device=x.device)
     vals = [v for t in (x, dt, Bm, C) for v in t.stride()[:3]]
     strides = (ctypes.c_longlong * 12)(*vals)
+    ws, ptrs = [], None
+    if x.dtype == torch.bfloat16:
+        ws = [torch.empty(k, dtype=torch.float32, device=x.device)
+              for k in workspace_sizes(b, s, h, p, g, n, chunk)]
+        ptrs = (ctypes.c_void_p * 4)(*(t.data_ptr() for t in ws))
+        TC_LAUNCHES += 1
+    else:
+        FMA_LAUNCHES += 1
     LAUNCHES += 1
     with torch.cuda.device(x.device):
         err = _fn()(x.data_ptr(), dt.data_ptr(), A.data_ptr(),
                     Bm.data_ptr(), C.data_ptr(),
                     None if init is None else init.data_ptr(), y.data_ptr(),
-                    st.data_ptr(), strides, b, s, h, g, p, n, chunk,
+                    st.data_ptr(), ptrs, strides, b, s, h, g, p, n, chunk,
                     DTYPES[x.dtype],
                     torch.cuda.current_stream(x.device).cuda_stream)
     if err:

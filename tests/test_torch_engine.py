@@ -7,6 +7,8 @@ churn, page-pressure eviction, prefix sharing on and off, and chunked and
 one-shot prefill.  Sampled streams (Philox in the port, threefry in the
 reference) are held to the port's own invariants instead.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -69,6 +71,26 @@ def test_greedy_streams_match_reference_with_slot_churn(served):
     prompts = [list(range(3, 3 + n)) for n in (16, 5, 12, 9, 17)]
     _both(served, prompts, mmu_kw=dict(page_size=16, n_pages=128),
           max_batch=2, max_len=128)
+
+
+def test_h2o_danube_head_dim_120_streams_match_reference():
+    """Reduced h2o-danube-3-4b with its published head_dim of 120 kept (the
+    reduced configs all have 32): the port's paged engine gives the JAX
+    engine's greedy tokens (its Pallas kernel in interpret mode), with
+    churn through 2 slots and chunked prefill."""
+    jcfg = dataclasses.replace(jget("h2o-danube-3-4b").reduced(),
+                               head_dim=120)
+    cfg = dataclasses.replace(get_config("h2o-danube-3-4b").reduced(),
+                              head_dim=120)
+    jparams = JT.init_params(jax.random.PRNGKey(1), jcfg, dtype=jnp.float32)
+    params = from_reference(jax.tree.map(np.asarray, jparams), device="cpu")
+    assert params["layers"]["attn"]["wq"].shape[-1] == cfg.n_heads * 120
+    rs = np.random.RandomState(5)
+    prompts = [rs.randint(0, cfg.vocab_size, n).tolist()
+               for n in (5, 17, 30, 9)]
+    _both((jcfg, jparams, cfg, params), prompts,
+          mmu_kw=dict(page_size=8, n_pages=64), max_batch=2, max_len=64,
+          prefill_chunk=16, new_tokens=6)
 
 
 def test_greedy_streams_match_reference_in_a_tiny_pool(served):

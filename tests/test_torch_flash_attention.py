@@ -32,7 +32,8 @@ from repro_torch.kernels.flash_attention import flash_attention_bwd as fab
 from repro_torch.kernels.flash_attention import ops
 from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
                                                      attention_ref,
-                                                     bf16_dkv_bound)
+                                                     bf16_dkv_bound,
+                                                     bf16_dq_bound)
 from repro_torch.models import attention
 
 # small shapes: one intra-op thread is faster and leaves the cores to
@@ -46,12 +47,17 @@ FA_CASES = [                    # tests/test_kernels.py FA_CASES
     (1, 4, 2, 256, 256, 64, True, 128, "float32"),  # SWA
     (1, 2, 2, 128, 256, 64, False, 0, "float32"),   # cross-attn
     (1, 4, 2, 128, 128, 64, True, 0, "bfloat16"),   # low precision
+    (2, 4, 2, 128, 128, 80, True, 0, "float32"),    # D 80: zamba2's block
+    (1, 4, 1, 130, 130, 120, True, 64, "float32"),  # D 120: h2o-danube
+    (1, 8, 2, 96, 96, 120, True, 0, "bfloat16"),
 ]
 BWD_CASES = [                   # tests/test_kernels.py BWD_CASES
     (1, 4, 2, 128, 128, 64, True, 0),
     (2, 2, 1, 96, 160, 64, True, 0),     # padded + MHA-as-GQA
     (1, 4, 4, 128, 128, 64, False, 0),   # non-causal
     (1, 2, 2, 128, 128, 64, True, 64),   # sliding window
+    (1, 4, 2, 128, 128, 80, True, 0),    # head dim 80
+    (1, 4, 1, 100, 100, 120, True, 0),   # head dim 120, ragged
 ]
 ATOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
@@ -247,6 +253,60 @@ def test_bf16_dkv_bound_holds_the_kernels_rounding(case):
         old_excess.append(float(((got - want).abs() - 5e-4
                                  - 2.0 ** -8 * want.abs()).max()))
     assert max(old_excess) > 0
+
+
+def _emulate_bf16_dq(q, k, v, o, do, lse, causal, window):
+    """dq as the bf16 tensor-core dq kernel rounds it: dS cast to bf16 and
+    back before dq += dS k, the sums in float32, dq stored in bf16."""
+    b, h, sq, d = q.shape
+    kh = k.shape[1]
+    g, scale = h // kh, 1.0 / np.sqrt(d)
+    s = torch.einsum("bkgqd,bksd->bkgqs", q.float().reshape(b, kh, g, sq, d),
+                     k.float()) * scale
+    qpos = torch.arange(sq)[:, None]
+    kpos = torch.arange(k.shape[2])[None, :]
+    vis = torch.ones_like(s[0, 0, 0], dtype=torch.bool)
+    if causal:
+        vis &= kpos <= qpos
+    if window > 0:
+        vis &= kpos > qpos - window
+    p = torch.where(vis, torch.exp(s - lse.reshape(b, kh, g, sq, 1)), 0.0)
+    dof = do.float().reshape(b, kh, g, sq, d)
+    dcap = (dof * o.float().reshape(b, kh, g, sq, d)).sum(-1, keepdim=True)
+    ds = p * (torch.einsum("bkgqd,bksd->bkgqs", dof, v.float()) - dcap)
+    rnd = lambda x: x.to(torch.bfloat16).float()  # noqa: E731
+    dq = torch.einsum("bkgqs,bksd->bkgqd", rnd(ds), k.float()) * scale
+    return rnd(dq.reshape(b, h, sq, d))
+
+
+@pytest.mark.parametrize("case", BWD_CASES,
+                         ids=[f"fabwd{i}" for i in range(len(BWD_CASES))])
+def test_bf16_dq_bound_holds_the_kernels_rounding(case):
+    """The restated bf16 dq tolerance (``ref.bf16_dq_bound``): the tensor-core
+    dq kernel's rounding of dS to bf16, emulated in plain torch, stays
+    inside it and breaks the check it replaces (atol 5e-4 + rtol 2^-8,
+    written for the float32 FMA dq kernel), and the float32 plain version
+    sits well inside it against the reference's Pallas backward
+    (interpret mode) on the same values."""
+    b, h, kh, sq, sk, d, causal, window = case
+    q, k, v, do = (torch.tensor(a).bfloat16() for a in
+                   _np_inputs(b, h, kh, sq, sk, d, 9, n=4))
+    o, lse = attention_ref(q, k, v, causal=causal, window=window)
+    kw = dict(causal=causal, window=window)
+    bound = bf16_dq_bound(q, k, v, o, do, lse, **kw)
+    want, _, _ = attention_bwd_ref(*(t.float() for t in (q, k, v, o, do)),
+                                   lse, **kw)
+    got = _emulate_bf16_dq(q, k, v, o, do, lse, causal, window)
+    jx = [jnp.asarray(t.float().numpy()) for t in (q, k, v, o, do)]
+    jdq, _, _ = pallas_flash_attention_bwd(
+        *jx, jnp.asarray(lse.numpy()), causal=causal, window=window,
+        interpret=True)
+    assert bound.shape == want.shape == got.shape
+    assert bool(((got - want).abs() <= bound).all())
+    assert bool(((torch.tensor(np.asarray(jdq)) - want).abs()
+                 <= 0.1 * bound).all())
+    assert float(((got - want).abs() - 5e-4
+                  - 2.0 ** -8 * want.abs()).max()) > 0
 
 
 def test_readable_keeps_model_views_and_copies_misaligned_bf16():

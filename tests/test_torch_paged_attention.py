@@ -28,6 +28,8 @@ PA_CASES = [                              # b, h, kh, d, page, maxp, npages
     (2, 8, 2, 64, 128, 4, 16),
     (3, 4, 4, 128, 64, 6, 32),
     (1, 16, 8, 64, 256, 3, 8),
+    (2, 8, 2, 80, 16, 5, 16),             # head dim 80: zamba2's block
+    (1, 32, 8, 120, 16, 4, 8),            # head dim 120: h2o-danube
 ]
 
 

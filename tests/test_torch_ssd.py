@@ -12,13 +12,17 @@ kernel tests state them, on the port.
 
 Tolerance: atol 5e-4 on y and the state, the reference's kernel tests'
 own: the chunked and sequential forms sum the same float32 terms in other
-orders.
+orders.  The bf16 tensor-core kernels' arithmetic (the chunk-parallel split
+with every float32 operand as bf16 hi + lo) is emulated in plain torch and
+held to the card's tolerances (``tests/test_torch_cuda.py``: atol 5e-4
+plus rtol 2^-12 on the state, 2^-8 on the bf16 y).
 """
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 try:
     from hypothesis import given, settings, strategies as st
 except ImportError:          # offline env: deterministic shim
@@ -162,3 +166,98 @@ def test_ops_ssd_refuses_a_gradient_on_the_card():
     x, dt, A, Bm, C = (t.cuda() for t in _t(*_inputs(1, 64, 2, 32, 1, 16)))
     with pytest.raises(NotImplementedError, match="item 19"):
         ops.ssd(x.requires_grad_(True), dt, A, Bm, C, chunk=32)
+
+
+def _bf16(v):
+    return v.to(torch.bfloat16).float()
+
+
+def _hi_lo(v, two=True):
+    """What a float32 operand brings to the kernels' bf16 products: hi + lo
+    (both bf16), or hi alone (``two=False``, the design not taken)."""
+    hi = _bf16(v)
+    return hi + _bf16(v - hi) if two else hi
+
+
+def _emulate_bf16_ssd(x, dt, A, Bm, C, chunk, init=None, two=True):
+    """The bf16 SSD kernels' arithmetic in plain torch: C B^T per group;
+    each chunk's state X^T (w B) with w B split into bf16 hi + lo; the
+    state passed from chunk to chunk in float32; y = exp(cum) C . state^T
+    with the entering state split, plus (C B^T o decay o dt) X with the
+    decayed scores split; products of bf16 values summed in float32; y
+    rounded to bf16."""
+    b, s, h, p = x.shape
+    g, n = Bm.shape[2], Bm.shape[3]
+    rep = h // g
+    pad = (-s) % chunk
+    xf, dtf, Bf, Cf = x.float(), dt.float(), Bm.float(), C.float()
+    if pad:                       # dt = 0 past S, as the kernels read it
+        xf, Bf, Cf = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (xf, Bf, Cf))
+        dtf = F.pad(dtf, (0, 0, 0, pad))
+    nc = xf.shape[1] // chunk
+    xc = xf.reshape(b, nc, chunk, g, rep, p)
+    dtc = dtf.reshape(b, nc, chunk, h)
+    Bc, Cc = (t.reshape(b, nc, chunk, g, n) for t in (Bf, Cf))
+    cum = torch.cumsum(dtc * A[None, None, None, :], 2)
+    seg = cum[:, :, -1]
+    cb = torch.einsum("bclgn,bcmgn->bclmg", Cc, Bc)             # once per g
+    w = (torch.exp(seg[:, :, None, :] - cum) * dtc).reshape(
+        b, nc, chunk, g, rep)
+    wb = _hi_lo(w[..., None] * Bc[:, :, :, :, None, :], two)
+    states = torch.einsum("bclgrp,bclgrn->bcgrpn", xc, wb).reshape(
+        b, nc, h, p, n)
+    st_ = torch.zeros(b, h, p, n) if init is None else init.float()
+    prevs = []
+    for c in range(nc):
+        prevs.append(st_)
+        st_ = torch.exp(seg[:, c])[:, :, None, None] * st_ + states[:, c]
+    prev = _hi_lo(torch.stack(prevs, 1), two).reshape(b, nc, g, rep, p, n)
+    y_off = (torch.einsum("bclgn,bcgrpn->bclgrp", Cc, prev)
+             * torch.exp(cum).reshape(b, nc, chunk, g, rep)[..., None])
+    tril = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool))
+    decay = torch.where(tril[None, None, :, :, None],
+                        torch.exp(cum[:, :, :, None] - cum[:, :, None]),
+                        torch.zeros(()))                       # (B,nc,L,L,H)
+    scores = cb[..., None] * (decay * dtc[:, :, None]).reshape(
+        b, nc, chunk, chunk, g, rep)
+    y_diag = torch.einsum("bclmgr,bcmgrp->bclgrp", _hi_lo(scores, two), xc)
+    y = (y_diag + y_off).reshape(b, nc * chunk, h, p)[:, :s]
+    return _bf16(y), st_
+
+
+def _excess(got, want, rtol):
+    return float(((got - want).abs() - ATOL - rtol * want.abs()).max())
+
+
+@pytest.mark.parametrize("with_init", [False, True], ids=["zeros", "init"])
+@pytest.mark.parametrize("case", SSD_CASES + [(2, 77, 8, 32, 1, 16, 32)],
+                         ids=IDS + ["ragged"])
+def test_bf16_kernel_arithmetic_keeps_the_tolerances(case, with_init):
+    """The bf16 tensor-core SSD's split and roundings, emulated, stay inside
+    the card's check against the float32 chunked scan on the same bf16
+    values (state atol 5e-4 + rtol 2^-12, y + rtol 2^-8), and inside the
+    same bounds against the sequential recurrence and the reference's
+    chunked scan; one bf16 rounding of each float32 operand (hi alone)
+    would break them, which is why the kernels run hi + lo."""
+    b, s, h, p, g, n, chunk = case
+    x, dt, A, Bm, C = _t(*_inputs(b, s, h, p, g, n, seed=10))
+    x, Bm, C = (t.bfloat16() for t in (x, Bm, C))
+    init = (torch.from_numpy(np.random.RandomState(11).randn(
+        b, h, p, n).astype(np.float32)) if with_init else None)
+    y, st_ = _emulate_bf16_ssd(x, dt, A, Bm, C, chunk, init)
+    f32 = (x.float(), dt, A, Bm.float(), C.float())
+    wy, wst = ssd_chunked(*f32, chunk=chunk, init_state=init)
+    assert _excess(y, wy, 2.0 ** -8) <= 0
+    assert _excess(st_, wst, 2.0 ** -12) <= 0
+    jy, jst = jssd_chunked(*_j(*(t.numpy() for t in f32)), chunk=chunk,
+                           init_state=None if init is None
+                           else jnp.asarray(init.numpy()))
+    assert _excess(y, torch.tensor(np.asarray(jy)), 2.0 ** -8) <= 0
+    assert _excess(st_, torch.tensor(np.asarray(jst)), 2.0 ** -12) <= 0
+    if init is None:
+        sy, sst = ssd_sequential(*f32)
+        assert _excess(y, sy, 2.0 ** -8) <= 0
+        assert _excess(st_, sst, 2.0 ** -12) <= 0
+    y1, st1 = _emulate_bf16_ssd(x, dt, A, Bm, C, chunk, init, two=False)
+    assert max(_excess(y1, wy, 2.0 ** -8),
+               _excess(st1, wst, 2.0 ** -12)) > 0
