@@ -18,7 +18,9 @@ and a mamba decode step.  Phases, in order:
   2. build: compile every kernel, print the build seconds and each kernel's
      registers, shared memory and spills;
   3. kernels vs plain versions on the card (fp32 and bf16): paged
-     attention with and without the split of rows over several blocks;
+     attention with and without the split of rows over several blocks
+     (G 1-10, D 32-128 with 80 and 120, pages of 16-256, a ragged table,
+     empty rows, rows ending on a tile or a split, both decode shapes);
      the flash-attention forward, dq and dkv kernels (bf16 on the tensor
      cores, float32 on FMA) on the reference's test cases, head dims 32,
      64, 80, 120 and 128, h2o-danube's and the training shape, and
@@ -26,10 +28,11 @@ and a mamba decode step.  Phases, in order:
      SSD scan (bf16 on the tensor cores, float32 on FMA) on the
      reference's cases, the reduced and the main mamba shapes, a ragged S
      and an initial state;
-  4. serving main path: 24 requests through the engine at full width, bf16;
+  4. serving main path: 24 requests through the engine at full width, bf16,
+     every paged-attention call on ``pa_decode_kernel``;
  10. h2o-danube serving: 8 requests of 256-1024 prompt tokens, 32 new
      tokens each, through the engine at full width in bf16 (head_dim 120 on
-     the paged kernel built for 128);
+     the paged kernel built for 128), likewise;
   5. training main path: 20 steps of ``Trainer`` at full width, sequence
      2048, batch 8, fp32 masters with bf16 compute, a checkpoint every 5
      steps and an injected failure at step 12 (one restart); its forward,
@@ -45,7 +48,9 @@ and a mamba decode step.  Phases, in order:
   7. kernel timing at the main paths' shapes (median, p10 and p90), with
      each kernel's bound and a PyTorch library call as yardstick where one
      computes the same function (for flash attention also SDPA's backward
-     alone);
+     alone); for paged attention also the h2o-danube decode shape, the
+     profiler's device time per call, the wrapper's host time per call and
+     a sweep of the split length and the ring depth;
   8. profiles: where a steady decode step (every slot full), a training
      step, a mamba prefill call and a mamba decode step spend their time
      (host wall untraced and traced, device busy time, the device's idle
@@ -81,8 +86,9 @@ FA_BWD_SOURCE = "src/repro_torch/csrc/flash_attention_bwd.cu"
 # the kernel each dtype runs, by the kernels line's name
 VARIANTS = {
     "paged_attention": {
-        "bfloat16": "paged_attention_kernel, combine_kernel (float32 FMA)",
-        "float32": "paged_attention_kernel, combine_kernel (float32 FMA)"},
+        "bfloat16": "pa_decode_kernel (16-byte cp.async ring, a lane group "
+                    "per token, splits merged by the row's last block)",
+        "float32": "pa_decode_kernel (the same template, 4 floats a lane)"},
     "flash_attention_fwd": {"bfloat16": "fa_fwd_wgmma_kernel (wgmma, TMA)",
                             "float32": "fa_fwd_kernel (float32 FMA)"},
     "flash_attention_dq": {"bfloat16": "fa_dq_wgmma_kernel (wgmma, TMA)",
@@ -93,6 +99,9 @@ VARIANTS = {
                         "ssd_scan_kernel (wgmma; float32 operands as bf16 "
                         "hi + lo)",
             "float32": "ssd_kernel (float32 FMA)"}}
+# the paged-attention kernels by name, for the decode profile
+PA_PROFILE_NAMES = sorted({n for v in VARIANTS["paged_attention"].values()
+                           for n in re.findall(r"\w+_kernel", v)})
 FA_REPLACES = {
     "flash_attention_fwd":
         "src/repro/kernels/flash_attention/flash_attention.py:36",
@@ -130,6 +139,7 @@ MAMBA_PROFILE_STEPS = 16
 # float32 flash kernels compute float32 FMA: a float32 input held to atol
 # 2e-5 cannot go through TF32)
 HBM_BYTES_PER_S = 3.35e12
+SPIN_CYCLES = 500_000        # phase 7: the card's wait for the host's call
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 ATOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # flash-attention gradients: float32 atol 5e-4 (the reference's backward
@@ -169,6 +179,12 @@ PA_CASES = [(2, 8, 2, 64, 128, 4, 16), (3, 4, 4, 128, 64, 6, 32),
             (2, 8, 2, 80, 16, 9, 40),        # D 80: zamba2's shared block
             (8, 32, 8, 120, 16, 64, 600)]    # D 120: h2o-danube-3-4b
 MAIN_SHAPE = (16, 9, 3, 64, 16, 64, 2048)
+# phase 7: h2o-danube-3-4b's decode (phase 10's engine: 8 rows, maxp 66 for
+# max_len 1056), rows of 256-1056 tokens
+H2O_SHAPE = (8, 32, 8, 120, 16, 66, 1024)
+# phase 7's sweep of the paged kernel's split and ring depth (both shapes)
+PA_SWEEP_PAGES = (2, 4, 8, 16, 32, 64)
+PA_SWEEP_STAGES = (1, 2, 3, 4, 6)
 PROFILE_STEPS = 32
 # phase 10: full-width h2o-danube-3-4b (head_dim 120) through the engine
 H2O_REQUESTS, H2O_PROMPT, H2O_NEW_TOKENS = 8, (256, 1024), 32
@@ -220,10 +236,17 @@ def phase_kernels(pa, ref, gen):
     ragged[1, :2] = torch.tensor([5, 9])
     ragged[2, :7] = torch.tensor([1, 2, 3, -1, 4, 6, 7])
     cases.append(("ragged", (3, 4, 2, 64, 16, 7, 32), [0, 32, 100], ragged))
+    # G 8 at D 128 (qwen2, chameleon); G 10 (two blocks of heads)
+    cases.append(("g8", (2, 16, 2, 128, 16, 20, 64), [300, 77], None))
+    cases.append(("g10", (2, 20, 2, 64, 16, 12, 32), [190, 0], None))
+    # rows ending on a tile (32 tokens), on a split (8 pages) and on two
+    cases.append(("edges", (4, 9, 3, 64, 16, 24, 128), [32, 128, 256, 0],
+                  None))
     # enough blocks to fill the card without splitting rows: one pass
     cases.append(("wide", (192, 9, 3, 64, 16, 8, 2048),
                   main_lens(192, 16, 8), None))
     cases.append(("main", MAIN_SHAPE, main_lens(16, 16, 64), None))
+    cases.append(("h2o", H2O_SHAPE, h2o_lens(), None))
     main_err = None
     for name, shape, lens, tables in cases:
         for dtype in (torch.float32, torch.bfloat16):
@@ -232,16 +255,31 @@ def phase_kernels(pa, ref, gen):
             want = ref(q.float(), kp.float(), vp.float(), tab, ln)
             torch.cuda.synchronize()
             check(bool(torch.isfinite(out).all()), f"{name} non-finite")
+            check(all(bool((out[i] == 0).all())
+                      for i, n in enumerate(lens) if n == 0),
+                  f"{name}: an empty row is not exactly 0")
             err = float((out.float() - want).abs().max())
             tol = ATOL[dtype]
-            splits = pa.n_splits(q.device, shape[0], shape[1], shape[2],
-                                 shape[5])
-            print(f"[3] {name:6s} {str(dtype):14s} splits={splits:2d} "
-                  f"max_abs_err={err:.3e} atol={tol:g}")
+            pps = pa.plan(shape[0], shape[1], shape[2], shape[5], shape[4],
+                          _sms())
+            print(f"[3] {name:6s} {str(dtype):14s} G={shape[1] // shape[2]}"
+                  f" D={shape[3]} page={shape[4]} pages_per_split={pps} "
+                  f"splits={-(-shape[5] // pps):2d} max_abs_err={err:.3e} "
+                  f"atol={tol:g}")
             check(err <= tol, f"kernel vs plain {name} {dtype}: {err}")
             if name == "main" and dtype == torch.bfloat16:
                 main_err = err
     return main_err
+
+
+def _sms():
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+def h2o_lens():
+    """Phase 7's h2o-danube rows: 256-1056 tokens, seeded."""
+    rs = np.random.RandomState(11)
+    return [int(x) for x in rs.randint(256, 1057, size=H2O_SHAPE[0])]
 
 
 def main_engine(cfg, params):
@@ -319,7 +357,7 @@ def phase_main_path(card):
         "prefill_tokens_per_s": eng.prefill_computed / eng.prefill_s,
         **{k: stats[k] for k in ("ttft_p50_ms", "ttft_p99_ms",
                                  "tpot_p50_ms", "tpot_p99_ms")},
-        "pa_launches": launches,
+        "pa_launches": launches, "pa_kernel": "pa_decode_kernel",
     }
     print("[4] " + json.dumps(line))
     return launches, cfg, params
@@ -392,7 +430,7 @@ def phase_h2o_serving(card):
         "decode_step_ms_p90": float(np.percentile(st, 90)),
         "prefill_tokens_per_s": eng.prefill_computed / eng.prefill_s,
         "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "pa_launches": launches,
+        "pa_launches": launches, "pa_kernel": "pa_decode_kernel",
         "first_tokens": [r.out_tokens[:6] for r in eng.completed[:2]]}))
     del eng, mmu, params
     torch.cuda.empty_cache()
@@ -434,6 +472,7 @@ def phase_card_vs_cpu():
     runs = {}
     teacher = None
     for dev in ("cpu", "cuda"):
+        _zero_counts()
         p = to(params, dev)
         pools = make_pools(cfg, n_pages, page, dtype=torch.float32,
                            device=dev)
@@ -453,6 +492,10 @@ def phase_card_vs_cpu():
         torch.cuda.synchronize()
         runs[dev] = (out, {k: v[:-1].cpu() for k, v in pools.items()})
         teacher = out
+    from repro_torch.kernels.paged_attention import paged_attention as pa
+    launches = pa.LAUNCHES                  # the card run's, float32
+    check(launches == 8 * cfg.n_layers, f"the float32 decode launched "
+          f"pa_decode_kernel {launches} times, not {8 * cfg.n_layers}")
     (ct, cp), (gt, gp) = runs["cpu"], runs["cuda"]
     live = [i for i, n in enumerate(plens) if n]
     for s, (a, g) in enumerate(zip(ct, gt)):
@@ -460,16 +503,21 @@ def phase_card_vs_cpu():
               f"greedy tokens differ at step {s}: {a} vs {g}")
     err = max(float((cp[k] - gp[k]).abs().max()) for k in ("k", "v"))
     print(f"[6] reduced smollm fp32, 8 teacher-forced decode steps: tokens "
-          f"identical, pool max_abs_err={err:.3e} atol=1e-4")
+          f"identical, pool max_abs_err={err:.3e} atol=1e-4; float32 ran "
+          f"pa_decode_kernel {launches} times")
     check(err <= 1e-4, f"pools differ by {err}")
 
 
 def time_ms(fn, reps, flush):
     """CUDA-event times of ``fn`` with L2 flushed before each call, after 3
-    warm-up calls: (median, p10, p90) in ms."""
+    warm-up calls: (median, p10, p90) in ms.  The card spins for about a
+    quarter of a millisecond between the flush and the first event, so the
+    host has enqueued ``fn`` before the card reaches it: a slow host does
+    not show up as device time."""
     times = []
     for _ in range(reps + 3):
         flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         a = torch.cuda.Event(enable_timing=True)
         z = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -487,27 +535,97 @@ def spread(t) -> str:
     return f"{t[0]:.4f} (p10 {t[1]:.4f}, p90 {t[2]:.4f})"
 
 
+def pa_device_ms(fn, reps, flush):
+    """Per call, the device time of the paged-attention kernels from a
+    ``torch.profiler`` trace of ``reps`` calls, each after an L2 flush:
+    {kernel name: median ms} and their sum (each runs once a call)."""
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    per = {n: [] for n in PA_PROFILE_NAMES}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for n in PA_PROFILE_NAMES:
+            if n in e.name:
+                per[n].append((e.time_range.end - e.time_range.start) / 1e3)
+    # the tracer may miss a call's kernels at its start: half must be there
+    check(len(per["pa_decode_kernel"]) >= reps // 2,
+          f"profile of {reps} paged calls holds "
+          f"{len(per['pa_decode_kernel'])} pa_decode_kernel launches")
+    medians = {n: float(np.median(v)) for n, v in per.items() if v}
+    return medians, sum(medians.values())
+
+
+def host_us(fn, n=100):
+    """Host microseconds per call of ``fn`` over ``n`` calls, no sync."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
 def phase_timing(pa, ref, gen, card):
-    b, h, kh, d, page, maxp, n_pages = MAIN_SHAPE
-    lens = main_lens(b, page, maxp)
+    """The paged kernel at the smollm decode shape (bf16 and float32) and
+    at h2o-danube's (bf16), L2 flushed before each call: CUDA-event time,
+    the kernels' device time from the profiler, the wrapper's host time,
+    the plain version's time and the byte bound; then, in bf16 at both
+    shapes, a sweep of pages_per_split and the ring depth.  Returns the
+    timing of each (shape name, dtype)."""
+    launches = pa.LAUNCHES            # timing launches are not main-path
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     res = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        q, kp, vp, tab, ln = pa_inputs(MAIN_SHAPE, lens, dtype, gen)
-        s = q.element_size()
-        nbytes = (2 * q.numel() * s + sum(lens) * kh * d * 2 * s
-                  + tab.numel() * 4 + ln.numel() * 4)
-        before = pa.LAUNCHES
-        k_ms = time_ms(lambda: pa.paged_attention(q, kp, vp, tab, ln), 50,
-                       flush)
-        pa.LAUNCHES = before          # timing launches are not main-path
-        p_ms = time_ms(lambda: ref(q, kp, vp, tab, ln), 20, flush)
-        bound = nbytes / HBM_BYTES_PER_S * 1e3
-        res[dtype] = (k_ms[0], p_ms[0], bound)
-        print(f"[7] paged_attention {str(dtype):14s} B={b} H={h} K={kh} "
-              f"D={d} page={page} maxp={maxp} sum(lens)={sum(lens)}: "
-              f"kernel_ms={spread(k_ms)} plain_ms={spread(p_ms)} "
-              f"bound_ms={bound:.4f} (bytes {nbytes}) [{card}]")
+    for name, shape, lens, dtypes in (
+            ("main", MAIN_SHAPE, main_lens(16, 16, 64),
+             (torch.float32, torch.bfloat16)),
+            ("h2o", H2O_SHAPE, h2o_lens(), (torch.bfloat16,))):
+        b, h, kh, d, page, maxp, n_pages = shape
+        for dtype in dtypes:
+            q, kp, vp, tab, ln = pa_inputs(shape, lens, dtype, gen)
+            s = q.element_size()
+            nbytes = (2 * q.numel() * s + sum(lens) * kh * d * 2 * s
+                      + tab.numel() * 4 + ln.numel() * 4)
+
+            def call():
+                return pa.paged_attention(q, kp, vp, tab, ln)
+
+            for _ in range(200):           # warm: clocks up, plan cached
+                call()
+            k_ms = time_ms(call, 50, flush)
+            dev, dev_ms = pa_device_ms(call, 30, flush)
+            h_us = host_us(call)
+            p_ms = time_ms(lambda: ref(q, kp, vp, tab, ln), 20, flush)
+            bound = nbytes / HBM_BYTES_PER_S * 1e3
+            res[(name, dtype)] = (k_ms[0], p_ms[0], bound)
+            pps = pa.plan(b, h, kh, maxp, page, _sms())
+            print(f"[7] paged_attention {name} {str(dtype):14s} B={b} H={h} "
+                  f"K={kh} D={d} page={page} maxp={maxp} "
+                  f"sum(lens)={sum(lens)} pages_per_split={pps} splits="
+                  f"{-(-maxp // pps)} stages={pa.STAGES}: "
+                  f"kernel_ms={spread(k_ms)} device_ms={dev_ms:.4f} "
+                  f"(profiler, by kernel {json.dumps(dev)}) host_us_per_call="
+                  f"{h_us:.1f} plain_ms={spread(p_ms)} bound_ms={bound:.4f} "
+                  f"(bytes {nbytes}; {bound / k_ms[0]:.1%} of the bound) "
+                  f"[{card}]")
+            if dtype == torch.bfloat16:
+                for pps_s in PA_SWEEP_PAGES:
+                    row = []
+                    for st in PA_SWEEP_STAGES:
+                        t = time_ms(lambda: pa.paged_attention(
+                            q, kp, vp, tab, ln, pages_per_split=pps_s,
+                            stages=st), 20, flush)
+                        row.append(f"stages {st}: {t[0]:.4f}")
+                    print(f"[7] paged sweep bf16 {name} pages_per_split="
+                          f"{pps_s} (splits {-(-maxp // pps_s)}): "
+                          + ", ".join(row) + f" ms [{card}]")
+            del q, kp, vp, tab, ln
+    pa.LAUNCHES = launches
     return res
 
 
@@ -572,7 +690,9 @@ def phase_decode_profile(cfg, params, card):
     kernels, busy, by_name = _profile_summary(prof, PROFILE_STEPS)
     total = sum(t for t, _ in by_name.values())
     pa_ms = sum(t for n, (t, _) in by_name.items()
-                if "paged_attention" in n or "combine_kernel" in n)
+                if any(k in n for k in PA_PROFILE_NAMES))
+    check(pa_ms > 0, f"profile: none of the paged-attention kernels "
+          f"{PA_PROFILE_NAMES} is in the decode trace")
     untraced = float(np.mean(walls))
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     print("[8] decode " + json.dumps({
@@ -586,6 +706,7 @@ def phase_decode_profile(cfg, params, card):
         "device_idle_share_untraced": 1 - busy / untraced,
         "device_idle_share_traced": 1 - busy / traced,
         "kernels_per_step": len(kernels) / PROFILE_STEPS,
+        "paged_attention_ms_per_step": pa_ms / PROFILE_STEPS,
         "paged_attention_share_of_kernel_time": pa_ms / total,
         "top_kernels_ms_per_step": [
             {"name": n[:80], "ms": t / PROFILE_STEPS,
@@ -1399,7 +1520,7 @@ def main() -> int:
     del trainer, step_fn
     phase_mamba_profile(mcfg, mparams, card)
 
-    k_ms, p_ms, bound = timing[torch.bfloat16]
+    k_ms, p_ms, bound = timing[("main", torch.bfloat16)]
     kernels = [{
         "name": "paged_attention", "route": "cuda", "source": PA_SOURCE,
         "replaces": PA_REPLACES, "launches": pa_launches,

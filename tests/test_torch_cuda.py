@@ -60,6 +60,9 @@ CASES = [                                 # b, h, kh, d, page, maxp, npages
     (2, 8, 2, 80, 16, 9, 40),             # D 80: zamba2's shared block
     (3, 32, 8, 120, 16, 6, 32),           # D 120: h2o-danube, G=4
     (2, 4, 2, 48, 8, 5, 16),              # D 48: run as 64
+    (2, 16, 2, 128, 16, 20, 64),          # G 8: qwen2, chameleon
+    (2, 20, 2, 64, 16, 12, 32),           # G 10: two blocks of heads
+    (2, 4, 4, 64, 16, 24, 64),            # G 1, several splits
 ]
 
 
@@ -71,10 +74,13 @@ def card():
     return torch.device("cuda")
 
 
-def _inputs(case, seed, dtype, card):
+def _inputs(case, seed, dtype, card, lens=None):
     b, h, kh, d, page, maxp, npages = case
     rs = np.random.RandomState(seed)
-    lens = np.minimum(rs.randint(0, page * maxp + 1, size=b), page * maxp)
+    if lens is None:
+        lens = np.minimum(rs.randint(0, page * maxp + 1, size=b),
+                          page * maxp)
+    lens = np.asarray(lens)
     lens[0] = 0                                   # an empty row
     tables = np.full((b, maxp), -1, np.int32)
     for i in range(b):
@@ -104,6 +110,46 @@ def test_kernel_matches_plain_version(card, case, dtype):
     assert (out[0] == 0).all()                    # empty row: exactly 0
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("stages", [1, 2, 3, 4, 6])
+def test_kernel_variants_match_and_count(card, stages, dtype):
+    """Every ring depth with splits of 1, 3 and the planner's pages (the
+    row's last block merging 24, 8 or 3 splits); each launch counted."""
+    case = (5, 9, 3, 64, 16, 24, 128)
+    # rows ending on a tile (32 tokens), on 8 and on 16 pages, and 300
+    q, kp, vp, tables, lens = _inputs(case, 4, getattr(torch, dtype), card,
+                                      lens=[0, 32, 128, 256, 300])
+    want = paged_attention_ref(q.float(), kp.float(), vp.float(), tables,
+                               lens)
+    for pps in (1, 3, None):
+        before = pa.LAUNCHES
+        out = pa.paged_attention(q, kp, vp, tables, lens,
+                                 pages_per_split=pps, stages=stages)
+        assert pa.LAUNCHES == before + 1
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out.float(), want, atol=ATOL[dtype],
+                                   rtol=0, msg=f"pages_per_split={pps}")
+        assert (out[0] == 0).all()
+
+
+def test_kernel_skips_page_ids_past_the_pool(card):
+    """A table entry >= P is never read: the output equals the plain
+    version's with that entry unmapped (-1)."""
+    q, kp, vp, tables, lens = _inputs((3, 8, 2, 64, 16, 12, 40), 6,
+                                      torch.bfloat16, card)
+    lens[:] = torch.tensor([150, 100, 190], dtype=torch.int32)
+    tables[:, :12] = torch.arange(36, dtype=torch.int32).reshape(3, 12)
+    tables[1, 2] = 40                              # P: past the pool
+    tables[2, 5] = 1 << 30
+    out = pa.paged_attention(q, kp, vp, tables, lens)
+    unmapped = torch.where(tables >= 40, -1, tables).int()
+    want = paged_attention_ref(q.float(), kp.float(), vp.float(), unmapped,
+                               lens)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), want, atol=ATOL["bfloat16"],
+                               rtol=0)
+
+
 def test_wrapper_rejects_what_the_kernel_does_not_take(card):
     q, kp, vp, tables, lens = _inputs(CASES[0], 1, torch.float32, card)
     before = pa.LAUNCHES
@@ -122,6 +168,13 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(card):
             pa.paged_attention(*wide, tables, lens)
     with pytest.raises(ValueError, match="CUDA device"):
         pa.paged_attention(q, kp, vp, tables.cpu(), lens)
+    buf = torch.empty(q.numel() + 1, dtype=q.dtype, device=q.device)
+    shifted = buf[1:].view(q.shape)               # contiguous, 4 bytes off
+    with pytest.raises(ValueError, match="16-byte"):
+        pa.paged_attention(shifted, kp, vp, tables, lens)
+    for bad in ({"stages": 7}, {"pages_per_split": 2000}):
+        with pytest.raises(ValueError):
+            pa.paged_attention(q, kp, vp, tables, lens, **bad)
     assert pa.LAUNCHES == before
 
 
