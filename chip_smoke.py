@@ -7,7 +7,8 @@ git-ignored ``build/``, one ``nvcc`` per source, all at once), holds each
 kernel against its plain PyTorch version on the card, drives the port's
 main paths at full width with seeded random weights: requests served
 through ``repro_torch.serve.engine.ServingEngine`` on smollm-135m and on
-h2o-danube-3-4b (head_dim 120), training steps through
+h2o-danube-3-4b (head_dim 120), the Coyote shell (``repro_torch.core``)
+with its five apps and smollm-135m served from a vFPGA slot, training steps through
 ``repro_torch.train.loop.Trainer`` on smollm-135m, and dense-cache serving
 (``prefill`` and ``decode_step`` of ``models/transformer.py``) of
 mamba2-1.3b; checks the card against the CPU on the reduced models, times
@@ -33,6 +34,19 @@ and a mamba decode step.  Phases, in order:
  10. h2o-danube serving: 8 requests of 256-1024 prompt tokens, 32 new
      tokens each, through the engine at full width in bf16 (head_dim 120 on
      the paged kernel built for 128), likewise;
+ 11. the shell: ``Shell`` with all five services and four vFPGA slots on
+     the card (its build allocating nothing); the transfer engine's
+     word-granular (64 MiB), chunked and whole (256 MiB) uploads, each
+     downloaded and compared; slot 0 ``lm_serving`` at full-width
+     smollm-135m, bf16 (phase 4's weights and MMU), serving two tenants
+     weighted 3:1, 8 prompts of 64-512 tokens each, 32 new tokens, while
+     slot 2 is hot-swapped (hll -> vector_add -> hll), with every paged
+     call on ``pa_decode_kernel`` and the billed decode I/O equal to the
+     engine's; slot 1 AES (ECB over 64 MiB, CBC with 1 and 64 streams of
+     256 blocks, FIPS-197), slot 2 HLL (2^24 items, 2^20 distinct), slot
+     3 the NN (262,144 x 593 rows, streamed and staged), each against the
+     CPU; ``reconfigure_shell`` dropping the sniffer, ``cold_restart``;
+     reduced smollm fp32 through the app on the card and the CPU;
   5. training main path: 20 steps of ``Trainer`` at full width, sequence
      2048, batch 8, fp32 masters with bf16 compute, a checkpoint every 5
      steps and an injected failure at step 12 (one restart); its forward,
@@ -58,13 +72,14 @@ and a mamba decode step.  Phases, in order:
 
 Each main path runs with every kernel's launch count set to 0 just before
 it and read just after it; each phase's number is printed at the start of
-its lines (phase 10 runs after phase 4, phase 9 after phase 5).  Any failed phase ends the script with a
+its lines (phases 10 and 11 run after phase 4, phase 9 after phase 5).  Any failed phase ends the script with a
 non-zero exit and no result line.  The line before the last is a JSON
 object describing each kernel; the last line is ``{"ok": true, "device":
 {...}}``.  Imports nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -188,6 +203,18 @@ PA_SWEEP_STAGES = (1, 2, 3, 4, 6)
 PROFILE_STEPS = 32
 # phase 10: full-width h2o-danube-3-4b (head_dim 120) through the engine
 H2O_REQUESTS, H2O_PROMPT, H2O_NEW_TOKENS = 8, (256, 1024), 32
+# phase 11: the shell on the card.  Slot 0 serves two tenants (3:1) of
+# SHELL_REQUESTS prompts each; AES over 64 MiB (ECB) and 64 streams of 256
+# blocks (CBC); HLL over 2^24 items of 2^20 distinct values; the NN on
+# 262,144 rows of 593 features
+SHELL_REQUESTS, SHELL_PROMPT, SHELL_NEW_TOKENS = 8, (64, 512), 32
+AES_ECB_BYTES, AES_PREFIX_BYTES = 64 << 20, 1 << 20
+AES_CBC_STREAMS, AES_CBC_BLOCKS = 64, 256
+HLL_ITEMS, HLL_DISTINCT, HLL_PREFIX = 1 << 24, 1 << 20, 1 << 20
+NN_ROWS, NN_BATCH = 262_144, 1024
+SHELL_BATCH = 4
+SHELL_LEN = SHELL_PROMPT[1] + SHELL_NEW_TOKENS
+SHELL_SHAPE = (SHELL_BATCH, 9, 3, 64, 16, -(-SHELL_LEN // 16), 2048)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -246,6 +273,10 @@ def phase_kernels(pa, ref, gen):
     cases.append(("wide", (192, 9, 3, 64, 16, 8, 2048),
                   main_lens(192, 16, 8), None))
     cases.append(("main", MAIN_SHAPE, main_lens(16, 16, 64), None))
+    # phase 11's slot-0 engine (4 rows, maxp 34 for max_len 544): one live
+    # row at the longest and at a mid-range length, three rows empty
+    cases.append(("shell", SHELL_SHAPE, [SHELL_LEN, 0, 0, 0], None))
+    cases.append(("shell2", SHELL_SHAPE, [0, 0, 301, 0], None))
     cases.append(("h2o", H2O_SHAPE, h2o_lens(), None))
     main_err = None
     for name, shape, lens, tables in cases:
@@ -433,6 +464,422 @@ def phase_h2o_serving(card):
         "pa_launches": launches, "pa_kernel": "pa_decode_kernel",
         "first_tokens": [r.out_tokens[:6] for r in eng.completed[:2]]}))
     del eng, mmu, params
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ------------------------------------------------------------------- shell
+def _gbps(nbytes, seconds):
+    return nbytes / seconds / 1e9
+
+
+def _timed(fn):
+    """(fn(), host seconds); the card is idle before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _flush():
+    """A buffer larger than the 50 MB L2, zeroed before each timed call."""
+    return torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+
+
+def _shell_services():
+    from repro_torch.core.services import (AESConfig, CollectiveConfig,
+                                           CompressionConfig, MMUConfig,
+                                           SnifferConfig)
+    return {"mmu": MMUConfig(page_size=16, n_pages=2048),
+            "encryption": AESConfig(), "compression": CompressionConfig(),
+            "collectives": CollectiveConfig(), "sniffer": SnifferConfig()}
+
+
+def _transfer_engine(eng, out):
+    """Table 2 analogue: word-granular upload of 64 MiB, chunked and
+    whole uploads of 256 MiB, each downloaded and compared."""
+    rs = np.random.RandomState(21)
+    for path, nbytes in (("word_granular", 64 << 20), ("chunked", 256 << 20),
+                         ("whole", 256 << 20)):
+        src = np.frombuffer(bytearray(rs.bytes(nbytes)), np.uint8)
+        fn = {"word_granular": eng.upload_word_granular,
+              "chunked": eng.upload, "whole": eng.upload_whole}[path]
+        fn(src[:16 << 20])          # warm-up: the pinned ring, the context
+        dev, st = fn(src)
+        back, _ = eng.download(dev)
+        check(np.array_equal(back.reshape(-1), src),
+              f"transfer engine {path}: download differs from the source")
+        out[f"upload_{path}_gbps"] = _gbps(nbytes, st.seconds)
+        out[f"upload_{path}_chunks"] = st.chunks
+        del dev, back
+
+
+def _serve_two_tenants(shell, cfg, out):
+    """Slot 0: two tenants (3:1) submit SHELL_REQUESTS prompts each
+    through slot 0's port; slot 2 is hot-swapped (hll -> vector_add ->
+    hll) while they are in flight."""
+    from repro_torch.apps.hll import make_hll_artifact
+    from repro_torch.apps.lm_serving import CSR_MAX_NEW_TOKENS
+    from repro_torch.apps.vector_add import make_vector_add_artifact
+    from repro_torch.core import Invocation, Oper, SgEntry
+    from repro_torch.core.interfaces import Packet
+    from repro_torch.kernels.paged_attention import paged_attention as pa
+
+    port = shell.attach(0)
+    shell.vfpgas[0].iface.csr.set_csr(SHELL_NEW_TOKENS, CSR_MAX_NEW_TOKENS)
+
+    def submit(prompt, tenant, stream):
+        inv = Invocation.from_sg(SgEntry(src=prompt, length=prompt.nbytes,
+                                         src_stream=stream,
+                                         opcode=Oper.KERNEL))
+        inv.tenant = tenant
+        return port.submit(inv)
+
+    # warm-up: the engine (its KV pools), cuBLAS and the kernel library
+    check(submit(np.arange(3, 40, dtype=np.int32), "gold", 0).result(
+        timeout=300).ok, "slot 0 warm-up request failed")
+    eng = shell.engines[0]
+    rs = np.random.RandomState(22)
+    prompts = [(t, rs.randint(1, cfg.vocab_size, size=int(rs.randint(
+        SHELL_PROMPT[0], SHELL_PROMPT[1] + 1))).astype(np.int32))
+        for _ in range(SHELL_REQUESTS) for t in ("gold", "bronze")]
+    sched = shell.scheduler
+    bytes0 = {t: s["bytes"] for t, s in sched.stats()["tenants"].items()}
+    io0, steps0, done0 = eng.io_bytes, eng.steps, len(eng.completed)
+    _zero_counts()
+    t_sub, futs = [], []
+    for tenant, prompt in prompts:
+        t_sub.append(time.perf_counter())
+        futs.append(submit(prompt, tenant, 0 if tenant == "gold" else 1))
+
+    # hot-swap slot 2 under slot 0's traffic
+    port2 = shell.attach(2)
+    swaps = []
+    for art in (make_vector_add_artifact(), make_hll_artifact()):
+        check(not all(f.done() for f in futs),
+              "slot 0's invocations finished before the hot-swap")
+        st = shell.reconfigure(2, art)
+        swaps.append({"app": art.name, "total_s": st["total_s"],
+                      "drain_s": st["drain_s"], "replayed": st["replayed"]})
+        if art.name == "vector_add":
+            iface = shell.vfpgas[2].iface
+            a, b = np.arange(8, dtype=np.float32), np.full(8, 2, np.float32)
+            for i, v in enumerate((a, b)):
+                iface.host_in[i].push(Packet(tid=0, seq_no=0, payload=v,
+                                             nbytes=v.nbytes, last=True))
+            comp = port2.submit(Invocation.from_sg(SgEntry(
+                src=None, length=a.nbytes, opcode=Oper.KERNEL))).result(60)
+            check(comp.ok and np.array_equal(comp.result, a + b),
+                  "vector_add on the hot-swapped slot 2")
+    comps = [f.result(timeout=600) for f in futs]
+    eng.flush_io(timeout=60, strict=True)
+    shell.drain()
+    torch.cuda.synchronize()
+    launches = pa.LAUNCHES
+    check(all(c.ok for c in comps),
+          f"slot 0 failures: {[c.result for c in comps if not c.ok][:2]}")
+    new = eng.completed[done0:]
+    check(len(new) == len(prompts) and len({r.rid for r in new}) == len(new),
+          f"slot 0 completed {len(new)} distinct requests, not "
+          f"{len(prompts)}: a completion was lost or duplicated")
+    pst = port.stats()
+    check(pst["submitted"] == pst["completed"],
+          f"slot 0 port submitted {pst['submitted']} completed "
+          f"{pst['completed']}")
+    by_list = {id(r.out_tokens): r for r in new}
+    steps = eng.steps - steps0
+    check(launches == cfg.n_layers * steps,
+          f"slot 0 LAUNCHES {launches} != {cfg.n_layers} x {steps} steps")
+    check(all(n == 0 for n in _flash_counts().values())
+          and _ssd_count() == 0, "slot 0 launched a flash or SSD kernel")
+    lat = {"gold": ([], []), "bronze": ([], [])}
+    for (tenant, prompt), t0, c in zip(prompts, t_sub, comps):
+        r = by_list[id(c.result)]
+        check(r.prompt == prompt.tolist(), "a completion carries another "
+              "request's tokens")
+        check(len(r.out_tokens) == SHELL_NEW_TOKENS
+              and all(0 <= t < cfg.vocab_size for t in r.out_tokens),
+              f"rid {r.rid}: {len(r.out_tokens)} tokens or one outside "
+              f"the vocabulary")
+        lat[tenant][0].append(r.t_first_token - t0)
+        lat[tenant][1].append((r.t_done - r.t_first_token)
+                              / (len(r.out_tokens) - 1))
+    stats = sched.stats()["tenants"]
+    billed = {t: s["bytes"] - bytes0.get(t, 0) for t, s in stats.items()}
+    io = eng.io_bytes - io0
+    check(billed[eng.tenant or "tenant0"] == io,
+          f"billed decode I/O {billed} != engine io_bytes {io}")
+    for t in ("gold", "bronze"):
+        want = sum(p.nbytes for tt, p in prompts if tt == t)
+        check(billed[t] == want, f"tenant {t} billed {billed[t]}, its "
+              f"prompts are {want} bytes")
+    total = sum(billed.values())
+    out.update({
+        "requests": len(prompts), "decode_steps": steps,
+        "pa_launches": launches, "engine_io_bytes": io,
+        "billed_bytes": billed,
+        "byte_shares": {t: b / total for t, b in billed.items()},
+        "ttft_p50_ms": {t: float(np.percentile(v[0], 50) * 1e3)
+                        for t, v in lat.items()},
+        "tpot_p50_ms": {t: float(np.percentile(v[1], 50) * 1e3)
+                        for t, v in lat.items()},
+        "decode_step_ms_p50": float(np.percentile(
+            eng.decode_step_times[-steps:], 50) * 1e3),
+        "hot_swaps_slot2": swaps})
+
+
+def _aes_slot(shell, out):
+    from repro_torch.apps.aes import make_aes_artifact
+    from repro_torch.core import Invocation, Oper, SgEntry
+    from repro_torch.core.services import encryption as E
+
+    rs = np.random.RandomState(23)
+    data = np.frombuffer(bytearray(rs.bytes(AES_ECB_BYTES)), np.uint8)
+    port = shell.attach(1)
+    key = np.arange(16, dtype=np.uint8)             # the CSR default key
+    rk_cpu = torch.from_numpy(E.expand_key(key))
+    shell.vfpgas[1].invoke_kernel(data[:AES_PREFIX_BYTES])     # warm-up
+    app_s = _timed(lambda: shell.vfpgas[1].invoke_kernel(data))[1]
+    comp, ecb_s = _timed(lambda: port.submit(Invocation.from_sg(SgEntry(
+        src=data, length=data.size, opcode=Oper.KERNEL))).result(300))
+    check(comp.ok, f"AES ECB on slot 1: {comp.result}")
+    pre = AES_PREFIX_BYTES
+    want = E.aes_ecb(torch.from_numpy(data[:pre].reshape(-1, 16).copy()),
+                     rk_cpu).numpy().reshape(-1)
+    check(np.array_equal(comp.result[:pre], want),
+          "AES ECB on the card differs from the CPU on the 1 MiB prefix")
+    blocks = torch.from_numpy(data.reshape(-1, 16)).cuda()
+    rk = rk_cpu.cuda()
+    dev_ms = time_ms(lambda: E.aes_ecb(blocks, rk), 5, _flush())[0]
+    fips_key = np.frombuffer(bytes.fromhex(
+        "2b7e151628aed2a6abf7158809cf4f3c"), np.uint8).copy()
+    pt = torch.from_numpy(np.frombuffer(bytes.fromhex(
+        "3243f6a8885a308d313198a2e0370734"), np.uint8).copy()).cuda()
+    ct = E.aes_ecb(pt[None], torch.from_numpy(
+        E.expand_key(fips_key)).cuda())[0].cpu().numpy()
+    check(ct.tobytes().hex() == "3925841d02dc09fbdc118597196a0b32",
+          f"FIPS-197 Appendix B on the card gives {ct.tobytes().hex()}")
+    del blocks
+    st = shell.reconfigure(1, make_aes_artifact("cbc"))
+    out["app_reconfigure_s"]["aes_ecb->aes_cbc"] = st["total_s"]
+    vf = shell.vfpgas[1]
+    cbc = {}
+    for streams in (1, AES_CBC_STREAMS):
+        buf = np.frombuffer(bytearray(rs.bytes(streams * AES_CBC_BLOCKS * 16)),
+                            np.uint8)
+        vf.invoke_kernel(buf, streams)              # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = vf.invoke_kernel(buf, streams)
+        secs = time.perf_counter() - t0
+        blk = torch.from_numpy(buf.reshape(streams, -1, 16).copy())
+        want = E.aes_cbc_multistream(
+            blk, torch.zeros((streams, 16), dtype=torch.uint8),
+            rk_cpu).numpy().reshape(-1)
+        check(np.array_equal(got, want),
+              f"AES CBC x{streams} on the card differs from the CPU")
+        cbc[streams] = (buf.size, secs)
+    out.update({
+        "aes_ecb_bytes": data.size, "aes_ecb_port_gbps": _gbps(
+            data.size, ecb_s), "aes_ecb_app_gbps": _gbps(data.size, app_s),
+        "aes_ecb_device_gbps": _gbps(
+            data.size, dev_ms / 1e3),
+        "aes_cbc_blocks_per_stream": AES_CBC_BLOCKS,
+        "aes_cbc_x1_gbps": _gbps(*cbc[1]), "aes_cbc_x1_s": cbc[1][1],
+        f"aes_cbc_x{AES_CBC_STREAMS}_gbps": _gbps(*cbc[AES_CBC_STREAMS]),
+        f"aes_cbc_x{AES_CBC_STREAMS}_s": cbc[AES_CBC_STREAMS][1]})
+
+
+def _hll_items():
+    """HLL_ITEMS items over exactly HLL_DISTINCT distinct 32-bit values
+    (an odd multiplier is a bijection modulo 2^32), shuffled."""
+    rs = np.random.RandomState(24)
+    base = ((np.arange(HLL_DISTINCT, dtype=np.uint64) * 2654435761 + 12345)
+            % (1 << 32)).astype(np.uint32)
+    return np.tile(base, HLL_ITEMS // HLL_DISTINCT)[
+        rs.permutation(HLL_ITEMS)]
+
+
+def _hll_slot(shell, out):
+    from repro_torch.apps import hll as H
+    from repro_torch.core import Invocation, Oper, SgEntry
+
+    items = _hll_items()
+    port = shell.attach(2)
+    src = items.view(np.uint8)
+    shell.vfpgas[2].invoke_kernel(src[:HLL_PREFIX * 4])        # warm-up
+    app_s = _timed(lambda: shell.vfpgas[2].invoke_kernel(src))[1]
+    comp, secs = _timed(lambda: port.submit(Invocation.from_sg(SgEntry(
+        src=src, length=src.size, opcode=Oper.KERNEL))).result(300))
+    check(comp.ok, f"HLL on slot 2: {comp.result}")
+    err = abs(comp.result - HLL_DISTINCT) / HLL_DISTINCT
+    bound = 3 * 1.04 / math.sqrt(4096)
+    check(err <= bound, f"HLL estimate {comp.result} is {err:.4f} off "
+          f"{HLL_DISTINCT} (bound {bound:.4f})")
+    pre = torch.from_numpy(items[:HLL_PREFIX].view(np.int32).copy())
+    check(torch.equal(H.hll_sketch(pre.cuda()).cpu(), H.hll_sketch(pre)),
+          "HLL registers on the card differ from the CPU's on the prefix")
+    dev_items = torch.from_numpy(items.view(np.int32).copy()).cuda()
+    dev_ms = time_ms(lambda: H.hll_sketch(dev_items), 5, _flush())[0]
+    del dev_items
+    out.update({"hll_items": HLL_ITEMS, "hll_distinct": HLL_DISTINCT,
+                "hll_estimate": comp.result, "hll_rel_err": err,
+                "hll_port_items_per_s": HLL_ITEMS / secs,
+                "hll_app_items_per_s": HLL_ITEMS / app_s,
+                "hll_device_items_per_s": HLL_ITEMS / (dev_ms / 1e3)})
+
+
+def _nn_slot(shell, overlay, out):
+    from repro_torch.apps.nn_inference import StagedCopyBaseline, mlp_apply
+
+    x = torch.randn((NN_ROWS, 593), generator=torch.Generator().manual_seed(
+        25)).numpy()
+    want = mlp_apply(overlay.params, torch.from_numpy(x)).numpy()
+    overlay.predict(x[:NN_BATCH * 4], batch_size=NN_BATCH)    # warm-up
+    got_app, app_s = _timed(lambda: shell.vfpgas[overlay.slot].invoke_kernel(x))
+    got, stream_s = _timed(lambda: overlay.predict(x, batch_size=NN_BATCH))
+    check(np.array_equal(got_app, got), "NN: the app's stream loop and the "
+          "port's predict differ")
+    staged = StagedCopyBaseline(overlay.params, device="cuda")
+    staged.predict(x[:NN_BATCH * 4], batch_size=NN_BATCH)
+    t0 = time.perf_counter()
+    got_staged = staged.predict(x, batch_size=NN_BATCH)
+    staged_s = time.perf_counter() - t0
+    for name, y in (("streamed", got), ("staged", got_staged)):
+        err = float(np.abs(y - want).max())
+        check(y.shape == (NN_ROWS, 1) and err <= 1e-4,
+              f"NN {name} on the card vs the CPU: max_abs_err {err}")
+    out.update({"nn_rows": NN_ROWS, "nn_batch": NN_BATCH,
+                "nn_streamed_rows_per_s": NN_ROWS / stream_s,
+                "nn_streamed_app_rows_per_s": NN_ROWS / app_s,
+                "nn_staged_rows_per_s": NN_ROWS / staged_s,
+                "nn_max_abs_err": float(np.abs(got - want).max())})
+
+
+def _reduced_app_card_vs_cpu():
+    """Reduced smollm-135m fp32 through the lm_serving app on a one-slot
+    shell on the card and on the CPU: identical greedy tokens."""
+    from repro_torch.apps.lm_serving import (CSR_MAX_NEW_TOKENS,
+                                             make_lm_serving_artifact)
+    from repro_torch.configs import get_config
+    from repro_torch.core import Oper, SgEntry, Shell, ShellConfig
+    from repro_torch.core.services import MMUConfig
+    from repro_torch.models.transformer import init_params
+
+    cfg = get_config("smollm-135m").reduced()
+    params = init_params(cfg, generator=torch.Generator().manual_seed(26),
+                         dtype=torch.float32, device="cpu")
+    rs = np.random.RandomState(26)
+    prompts = [rs.randint(1, cfg.vocab_size, size=n).astype(np.int32)
+               for n in (9, 40, 17)]
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        shell = Shell(ShellConfig.make(services={
+            "mmu": MMUConfig(page_size=16, n_pages=64)}, n_vfpgas=1),
+            device=dev)
+        shell.build()
+        shell.load_app(0, make_lm_serving_artifact(
+            cfg, _to_device(params, dev), max_len=96))
+        ct = shell.attach_thread(0, pid=7)
+        ct.setCSR(12, CSR_MAX_NEW_TOKENS)
+        runs[dev] = []
+        for pr in prompts:
+            comp = ct.invoke(Oper.KERNEL, SgEntry(src=pr, length=pr.nbytes),
+                             timeout=120)
+            check(comp.ok, f"reduced lm_serving on {dev}: {comp.result}")
+            runs[dev].append(list(comp.result))
+        shell.close()
+    check(runs["cpu"] == runs["cuda"],
+          f"reduced lm_serving tokens differ: {runs}")
+    return runs["cuda"]
+
+
+def _to_device(tree, dev):
+    return ({k: _to_device(v, dev) for k, v in tree.items()}
+            if isinstance(tree, dict) else tree.to(dev))
+
+
+def phase_shell(card, cfg, params):
+    """Phase 11: the Coyote v2 shell on the card.  Builds
+    ``Shell(services=<all five>, n_vfpgas=4)``, checks the transfer
+    engine, loads lm_serving (full-width smollm-135m, bf16), AES, HLL and
+    the NN into slots 0-3, serves two weighted tenants from slot 0 while
+    slot 2 is hot-swapped, runs each app against the CPU, reconfigures
+    the shell and cold-restarts it.  Returns the paged-attention launches
+    of slot 0's run."""
+    from repro_torch.apps.aes import make_aes_artifact
+    from repro_torch.apps.hll import make_hll_artifact
+    from repro_torch.apps.lm_serving import make_lm_serving_artifact
+    from repro_torch.apps.nn_inference import CoyoteOverlay
+    from repro_torch.core import Invocation, Oper, SgEntry, Shell, ShellConfig
+
+    t_phase = time.perf_counter()
+    out = {"card": card, "app_reconfigure_s": {}}
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    shell = Shell(ShellConfig.make(services=_shell_services(), n_vfpgas=4),
+                  device="cuda")
+    report = shell.build()
+    out["build_s"] = time.perf_counter() - t0
+    out["build_components"] = report.components
+    check(torch.cuda.max_memory_allocated() <= mem0,
+          f"the shell's build allocated device memory: peak "
+          f"{torch.cuda.max_memory_allocated()} > {mem0} bytes")
+    check(all(c["compile_s"] == 0.0 for c in report.components.values()),
+          "a build reported compile seconds")
+    _transfer_engine(shell.static.engine, out)
+
+    shell.register_tenant("gold", 3.0)
+    shell.register_tenant("bronze", 1.0)
+    for slot, art in ((0, make_lm_serving_artifact(
+            cfg, params, max_batch=SHELL_BATCH, max_len=SHELL_LEN)),
+            (1, make_aes_artifact("ecb")),
+            (2, make_hll_artifact())):
+        out["app_reconfigure_s"][art.name] = shell.load_app(
+            slot, art)["total_s"]
+    overlay = CoyoteOverlay(shell, slot=3, seed=0)
+    out["app_reconfigure_s"]["nn_inference"] = overlay.program_fpga(
+        warm_batch=NN_BATCH)["total_s"]
+    sniffer = shell.services.get("sniffer")
+    sniffer.start()
+
+    _serve_two_tenants(shell, cfg, out)
+    launches = out["pa_launches"]
+    _aes_slot(shell, out)
+    _hll_slot(shell, out)
+    _nn_slot(shell, overlay, out)
+    out["sniffer_records"] = len(sniffer.to_records())
+    check(out["sniffer_records"] > 0, "the sniffer captured nothing")
+
+    t0 = time.perf_counter()
+    services = _shell_services()
+    del services["sniffer"]
+    st = shell.reconfigure_shell(ShellConfig.make(services=services,
+                                                  n_vfpgas=4))
+    out["shell_reconfigure_s"] = time.perf_counter() - t0
+    out["shell_reconfigure_kernel_s"] = st["kernel_s"]
+    check("sniffer" not in shell.services.names()
+          and all(vf.app is not None for vf in shell.vfpgas),
+          "reconfigure_shell did not drop the sniffer or lost an app")
+    r = shell.cold_restart()
+    out["cold_restart_s"] = r["total_s"]
+    check([vf.app.name for vf in shell.vfpgas]
+          == ["lm_serving", "aes_cbc", "hll", "nn_inference"],
+          "cold_restart did not reload every slot")
+    items = _hll_items()[:1 << 20]
+    comp = shell.attach(2).submit(Invocation.from_sg(SgEntry(
+        src=items.view(np.uint8), length=items.nbytes,
+        opcode=Oper.KERNEL))).result(120)
+    check(comp.ok and comp.result > 0, "HLL after cold_restart")
+    shell.close()
+    out["reduced_fp32_tokens"] = _reduced_app_card_vs_cpu()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print("[11] " + json.dumps(out))
+    del shell, overlay
     torch.cuda.empty_cache()
     return launches
 
@@ -1504,6 +1951,8 @@ def main() -> int:
           "the serving path launched a flash-attention kernel")
     check(_ssd_count() == 0, "the serving path launched the SSD kernel")
     phase_h2o_serving(card)
+    _zero_counts()
+    phase_shell(card, cfg, params)
     fa_launches, trainer, step_fn = phase_train(card)
     check(_ssd_count() == 0, "the training path launched the SSD kernel")
     ssd_launches, mcfg, mparams = phase_mamba_serving(card)

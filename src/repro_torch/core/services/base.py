@@ -17,9 +17,10 @@ class Service(abc.ABC):
     """Base class.  Subclasses define NAME and a config dataclass.
 
     Port API v2: ``PORT_METHODS`` is the allowlist of operations a
-    service port may dispatch; anything else completes with ``ok=False``.
-    The port layer and ``port_capabilities()`` arrive with the shell
-    slice of the port.
+    :class:`repro_torch.core.port.ServicePort` may dispatch
+    (``port.submit(Invocation.call("method", ...))``); anything else
+    completes with ``ok=False``.  ``port_capabilities()`` is the
+    capability descriptor registered at ``Shell.attach()``.
     """
 
     NAME: str = "service"
@@ -31,6 +32,13 @@ class Service(abc.ABC):
         self.config = config
         self.generation = 0              # bumped on every reconfigure
         self.loaded_at = time.perf_counter()
+
+    def port_capabilities(self):
+        from repro_torch.core.port import PortCapabilities
+        return PortCapabilities(
+            name=self.NAME, kind="service", streams=0,
+            csr_map=dict(self.PORT_CSR_MAP),
+            mem_model=self.PORT_MEM_MODEL, ops=tuple(self.PORT_METHODS))
 
     # -- lifecycle -----------------------------------------------------------
     def configure(self, config: Any) -> None:

@@ -23,12 +23,19 @@ Hot-path invariants, as in the reference:
   * **Kernel on the card.**  Each decode step launches the CUDA
     paged-attention kernel once per layer
     (``repro_torch.kernels.paged_attention.paged_attention.LAUNCHES``).
+  * **Non-blocking billing.**  Bound to a shell (``shell``, ``slot``,
+    ``tenant``), the engine submits each decode step's host I/O — one
+    int32 token per live row — through the slot's unified Port into the
+    shell scheduler; the futures settle at step boundaries
+    (``_settle_io``) and ``flush_io()`` drains the tail.  Each step beats
+    the shell's health monitor for the slot, and a quarantined tenant is
+    refused at ``submit``.
 
-Not in this slice: shell binding and billed I/O, tensor-parallel meshes
-(the constructor raises for ``shell``, ``mesh`` and ``collectives``),
-migration (``snapshot_state``/``restore_state``/``evacuate``), and the
-gateway's hooks and step-time estimates (``admission_hook``,
-``token_sink``, the EWMAs), which come with the gateway.
+Not in this port yet: tensor-parallel meshes (the constructor raises for
+``mesh`` and ``collectives``), migration (``snapshot_state``/
+``restore_state``/``evacuate``), and the gateway's hooks and step-time
+estimates (``admission_hook``, ``token_sink``, the EWMAs), which come with
+the gateway.
 """
 from __future__ import annotations
 
@@ -41,6 +48,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.faults import FaultKind
+from repro_torch.core.port import Invocation, PortError
 from repro_torch.core.services.mmu import MMU
 from repro_torch.device import resolve_device
 from repro_torch.serve.paged_model import (decode_step_paged,
@@ -83,15 +92,12 @@ def _bucket(n: int, cap: int) -> int:
 class ServingEngine:
     def __init__(self, cfg: ModelConfig, params, mmu: MMU, *,
                  max_batch: int = 8, max_len: int = 1024, seed: int = 0,
-                 shell=None, rid_base: int = 0,
+                 shell=None, slot: int = 0, tenant: Optional[str] = None,
+                 rid_base: int = 0,
                  prefill_chunk: Optional[int] = None, admit_window: int = 8,
                  mesh=None, collectives=None, device=None):
         if cfg.ssm is not None or len(cfg.block_pattern) != 1:
             raise ValueError("the paged engine serves attention archs")
-        if shell is not None:
-            raise NotImplementedError(
-                "shell binding (billed decode I/O, health) waits for the "
-                "shell slice of the port")
         if mesh is not None or collectives is not None:
             raise NotImplementedError(
                 "tensor-parallel serving waits for the TP slice of the port")
@@ -138,6 +144,19 @@ class ServingEngine:
         # host mirror of the per-slot filters: decides filters_on
         self._topk = np.zeros(max_batch, np.int32)
         self._topp = np.ones(max_batch, np.float32)
+        # Optional shell binding: decode-step I/O is then submitted through
+        # the slot's unified Port into the shell scheduler (weighted
+        # credits + arbiter) instead of bypassing the shared link
+        self.shell = shell
+        self.slot = slot
+        self.tenant = tenant
+        self.io_bytes = 0
+        self.io_failures = 0          # billed-IO futures that failed typed
+        self._io_futs: List = []
+        self.port = (shell.attach(slot, tenant=tenant)
+                     if shell is not None else None)
+        if shell is not None:
+            shell.engines[slot] = self
         mmu.register_pager(self._pager_gather, self._pager_scatter,
                            owner=self)
 
@@ -170,6 +189,17 @@ class ServingEngine:
             raise ValueError(
                 f"prompt token out of range for vocab_size="
                 f"{self.cfg.vocab_size}")
+        health = getattr(self.shell, "health", None)
+        if health is not None and health.is_quarantined(self.tenant):
+            # graceful degradation: a repeatedly-faulting tenant is
+            # rejected fast with a typed error, bystanders keep flowing
+            health.record_rejection(self.tenant)
+            raise PortError(
+                f"tenant {self.tenant!r} is quarantined (repeated faults "
+                "within the quarantine window); "
+                "shell.health.unquarantine() to lift",
+                kind=FaultKind.QUARANTINED, slot=self.slot,
+                tenant=self.tenant, retryable=False)
         rid = self._rid_next
         self._rid_next += 1
         self.queue.append(Request(
@@ -395,6 +425,11 @@ class ServingEngine:
     # ------------------------------------------------------------ decode ----
     def step(self) -> int:
         """One continuous-batching engine step; returns tokens emitted."""
+        if self.shell is not None:
+            health = getattr(self.shell, "health", None)
+            if health is not None:
+                health.beat(self.slot)      # watchdog: slot is decoding
+        self._settle_io()
         self._admit()
         self._prefill_chunks()
         # decode runs over BOUND rows only: chunk-prefilling rows hold a
@@ -431,6 +466,7 @@ class ServingEngine:
         toks = next_toks.cpu().numpy()
         self.decode_step_times.append(time.perf_counter() - t0)
         self.steps += 1
+        self._submit_step_io(n_live=len(live))
 
         emitted = 0
         freed = []
@@ -454,6 +490,69 @@ class ServingEngine:
             self._sync_slot_state(freed, [(0, 0, 0.0, 0, 1.0, 0)] * len(freed))
         self.tokens_out += emitted
         return emitted
+
+    # ---------------------------------------------------------- billing ----
+    def _submit_step_io(self, n_live: int) -> None:
+        """Bill this decode step's host I/O — one int32 token per live
+        row is all that crosses the link — to our tenant through the
+        slot's unified Port (``port.submit`` -> shell scheduler).
+        Submission is async: the future is collected and settled at the
+        next step boundary.  Only the scheduler's submitter back-pressure
+        (tenant pending bound) can block here, which is the intended
+        self-containment of an over-subscribed tenant."""
+        if self.port is None or n_live == 0:
+            return
+        nbytes = n_live * 4
+        self.io_bytes += nbytes
+        fut = self.port.submit(Invocation.io(
+            nbytes, tag="decode_io", tenant=self.tenant))
+        self._io_futs.append(fut)
+
+    def _settle_io(self) -> None:
+        """Drop completed I/O futures (non-blocking settle)."""
+        if self._io_futs:
+            self._io_futs = [f for f in self._io_futs if not f.done()]
+
+    def flush_io(self, timeout: float = 30.0, *,
+                 strict: bool = False) -> bool:
+        """Wait (bounded by one shared deadline) for outstanding billed
+        I/O to clear the link.
+
+        A future that FAILED with a typed ``PortError`` is settled — the
+        error was already delivered and health-recorded by the port
+        layer — and counted in ``io_failures``.  Futures that neither
+        complete nor fail stay queued so accounting is never silently
+        dropped.  Returns True when fully drained; a timeout is recorded
+        as an ``io_flush_timeout`` health event when shell-bound, and
+        ``strict=True`` raises it as a typed ``PortError`` instead of
+        returning False."""
+        deadline = time.perf_counter() + timeout
+        remaining = []
+        for fut in self._io_futs:
+            left = deadline - time.perf_counter()
+            try:
+                comp = fut.completion(timeout=max(left, 0.0))
+            except BaseException:  # noqa: BLE001 — typed failure: the
+                self.io_failures += 1  # IO never cleared but is settled
+                continue
+            if comp is None and not fut.done():
+                remaining.append(fut)
+        self._io_futs = [f for f in remaining if not f.done()]
+        if not self._io_futs:
+            return True
+        health = getattr(self.shell, "health", None)
+        msg = (f"{len(self._io_futs)} decode-IO future(s) still pending "
+               f"after {timeout}s on slot {self.slot}")
+        if health is not None:
+            health.record_fault(FaultKind.IO_FLUSH_TIMEOUT,
+                                slot=self.slot, tenant=self.tenant,
+                                site="engine.flush_io", strike=False,
+                                msg=msg)
+        if strict:
+            raise PortError(msg, kind=FaultKind.IO_FLUSH_TIMEOUT,
+                            slot=self.slot, tenant=self.tenant,
+                            retryable=True)
+        return False
 
     def latency_stats(self) -> Dict[str, float]:
         """TTFT/TPOT percentiles over completed requests (milliseconds)."""

@@ -532,3 +532,54 @@ def test_mamba_serving_on_the_card_matches_the_cpu(card):
     for k in ("conv", "ssm"):
         torch.testing.assert_close(runs["cuda"][1][k], runs["cpu"][1][k],
                                    atol=1e-4, rtol=0)
+
+
+# ------------------------------------------------------- the shell, on card
+@pytest.mark.parametrize("path", ["word_granular", "chunked", "whole"])
+def test_transfer_engine_round_trip_on_the_card(card, path):
+    """Each upload path of the static layer's transfer engine puts the
+    bytes on the card unchanged (the chunked path through its pinned
+    ring, with a ragged last chunk), and a download gives them back."""
+    from repro_torch.core.static_layer import TransferEngine
+    eng = TransferEngine(card)
+    data = np.random.RandomState(0).randint(
+        0, 256, size=(3 << 20) + 4099).astype(np.uint8)
+    if path == "word_granular":
+        out, st = eng.upload_word_granular(data[:1 << 20])
+        data = data[:1 << 20]
+    elif path == "chunked":
+        out, st = eng.upload(data, chunk_bytes=1 << 20)
+        assert st.chunks == 4
+    else:
+        out, st = eng.upload_whole(data)
+    assert out.device.type == "cuda" and st.nbytes == data.nbytes
+    back, _ = eng.download(out)
+    assert np.array_equal(back.reshape(-1), data)
+    rows = data[:(3 << 20)].view(np.float32).reshape(-1, 256)
+    got = torch.cat(list(eng.stream_rows(rows, 100))).cpu().numpy()
+    assert np.array_equal(got.view(np.uint8), rows.view(np.uint8))
+
+
+def test_aes_on_the_card_matches_the_cpu(card):
+    from repro_torch.core.services import encryption as E
+    rs = np.random.RandomState(1)
+    rk = torch.from_numpy(E.expand_key(
+        rs.randint(0, 256, 16).astype(np.uint8)))
+    blocks = torch.from_numpy(rs.randint(0, 256, (4096, 16)).astype(
+        np.uint8))
+    ivs = torch.from_numpy(rs.randint(0, 256, (8, 16)).astype(np.uint8))
+    ecb = E.aes_ecb(blocks.to(card), rk.to(card)).cpu()
+    assert torch.equal(ecb, E.aes_ecb(blocks, rk))
+    ms = blocks[:8 * 32].reshape(8, 32, 16)
+    cbc = E.aes_cbc_multistream(ms.to(card), ivs.to(card), rk.to(card))
+    assert torch.equal(cbc.cpu(), E.aes_cbc_multistream(ms, ivs, rk))
+
+
+def test_hll_on_the_card_matches_the_cpu(card):
+    from repro_torch.apps import hll as H
+    items = torch.from_numpy(np.random.RandomState(2).randint(
+        -2 ** 31, 2 ** 31 - 1, size=1 << 20).astype(np.int32))
+    regs = H.hll_sketch(items.to(card))
+    assert torch.equal(regs.cpu(), H.hll_sketch(items))
+    assert float(H.hll_estimate(regs)) == pytest.approx(
+        float(H.hll_estimate(regs.cpu())), rel=1e-6)

@@ -220,12 +220,19 @@ def test_submit_rejects_out_of_vocab_tokens(served):
 
 def test_later_slices_raise(served):
     cfg, params = served[2], served[3]
-    for kw in ({"shell": object()}, {"mesh": object()},
-               {"collectives": object()}):
+    for kw in ({"mesh": object()}, {"collectives": object()}):
         with pytest.raises(NotImplementedError):
             ServingEngine(cfg, params, MMU(MMUConfig(page_size=8,
                                                      n_pages=16)),
                           device="cpu", **kw)
+    # shell binding is no longer a later slice: the engine binds to the
+    # slot's port and registers with the shell
+    from repro_torch.core import Shell, ShellConfig
+    shell = Shell(ShellConfig.make(services={}, n_vfpgas=1), device="cpu")
+    eng = ServingEngine(cfg, params, MMU(MMUConfig(page_size=8, n_pages=16)),
+                        device="cpu", shell=shell, slot=0, tenant="t")
+    assert eng.port is shell.attach(0) and shell.engines[0] is eng
+    shell.close()
 
 
 def test_engine_needs_the_card_unless_asked_for_cpu(served):
