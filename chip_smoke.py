@@ -11,7 +11,9 @@ h2o-danube-3-4b (head_dim 120), the Coyote shell (``repro_torch.core``)
 with its five apps and smollm-135m served from a vFPGA slot, training steps through
 ``repro_torch.train.loop.Trainer`` on smollm-135m, and dense-cache serving
 (``prefill`` and ``decode_step`` of ``models/transformer.py``) of
-mamba2-1.3b; checks the card against the CPU on the reduced models, times
+mamba2-1.3b, live migration, in-place recovery, the serving gateway and
+the fleet controller on smollm-135m, and the dense attention cache of
+h2o-danube-3-4b and smollm-135m; checks the card against the CPU on the reduced models, times
 the kernels and profiles a decode step, a training step, a mamba prefill
 and a mamba decode step.  Phases, in order:
 
@@ -21,10 +23,12 @@ and a mamba decode step.  Phases, in order:
   3. kernels vs plain versions on the card (fp32 and bf16): paged
      attention with and without the split of rows over several blocks
      (G 1-10, D 32-128 with 80 and 120, pages of 16-256, a ragged table,
-     empty rows, rows ending on a tile or a split, both decode shapes);
-     the flash-attention forward, dq and dkv kernels (bf16 on the tensor
-     cores, float32 on FMA) on the reference's test cases, head dims 32,
-     64, 80, 120 and 128, h2o-danube's and the training shape, and
+     empty rows, rows ending on a tile or a split, the decode shapes of
+     phases 4, 10, 11 and 12); the flash-attention forward, dq and dkv
+     kernels (bf16 on the tensor cores, float32 on FMA) on the
+     reference's test cases, head dims 32, 64, 80, 120 and 128,
+     h2o-danube's with and without its window, the training shape and
+     phase 13's dense prefills, and
      ``mha_fused``'s gradient against autograd of the plain forward; the
      SSD scan (bf16 on the tensor cores, float32 on FMA) on the
      reference's cases, the reduced and the main mamba shapes, a ragged S
@@ -47,6 +51,24 @@ and a mamba decode step.  Phases, in order:
      3 the NN (262,144 x 593 rows, streamed and staged), each against the
      CPU; ``reconfigure_shell`` dropping the sniffer, ``cold_restart``;
      reduced smollm fp32 through the app on the card and the CPU;
+ 12. migration, recovery, gateway and fleet: two ``Shell``s (MMU page 16,
+     2048 pages, a host pool) with one shell-bound engine each, phase 4's
+     weights; groups of 8 requests (64-512 prompt tokens, 64 new, half
+     sampled) moved after 16 decode steps by ``migrate`` (stop-and-copy)
+     and ``migrate_precopy``, recovered in place by ``Shell.recover_slot``
+     after the slot's heartbeat goes stale, and 4 healed by
+     ``FleetController.sweep``; each group's streams equal to an unmoved
+     control engine's, the destination's KV equal on the card to the
+     source's, every decode on ``pa_decode_kernel``; downtime, bytes and
+     pages shipped warm and in the freeze by mode; then a continuous
+     ``ServingGateway`` with 32 open arrivals: exactly-once streams and
+     typed refusals (GATEWAY_FULL, SLO_INFEASIBLE, SLO_EXPIRED);
+ 13. the dense attention cache: h2o-danube-3-4b fp32, decode after a
+     4200-token prefill (past its 4096 window, the ring fill) against a
+     4201-token prefill, atol 1e-3; smollm fp32 dense decode against the
+     paged engine's logits under teacher forcing, atol 1e-3; bf16 prefill
+     s and decode step ms (median, p90) of both models, and 8 more decode
+     steps traced: device busy ms and idle share per step;
   5. training main path: 20 steps of ``Trainer`` at full width, sequence
      2048, batch 8, fp32 masters with bf16 compute, a checkpoint every 5
      steps and an injected failure at step 12 (one restart); its forward,
@@ -72,7 +94,7 @@ and a mamba decode step.  Phases, in order:
 
 Each main path runs with every kernel's launch count set to 0 just before
 it and read just after it; each phase's number is printed at the start of
-its lines (phases 10 and 11 run after phase 4, phase 9 after phase 5).  Any failed phase ends the script with a
+its lines (phases 10-13 run after phase 4, phase 9 after phase 5).  Any failed phase ends the script with a
 non-zero exit and no result line.  The line before the last is a JSON
 object describing each kernel; the last line is ``{"ok": true, "device":
 {...}}``.  Imports nothing of JAX and nothing of the JAX package.
@@ -175,7 +197,10 @@ FA_CASES = [(2, 4, 2, 256, 256, 64, True, 0),
             (2, 4, 2, 77, 77, 32, True, 0),         # D 32: the reduced model
             (2, 4, 2, 200, 200, 80, True, 0),       # D 80: zamba2's block
             (1, 4, 1, 130, 130, 120, True, 64),     # D 120, window
-            (2, 32, 8, 2048, 2048, 120, True, 0)]   # h2o-danube-3-4b
+            (2, 32, 8, 2048, 2048, 120, True, 0),   # h2o-danube-3-4b
+            (1, 32, 8, 4200, 4200, 120, True, 4096),  # its window, phase 13
+            (4, 9, 3, 300, 300, 64, True, 0),       # phase 13: smollm fp32
+            (8, 9, 3, 512, 512, 64, True, 0)]       # phase 13: smollm bf16
 BWD_CASES = [(1, 4, 2, 128, 128, 64, True, 0),
              (2, 2, 1, 96, 160, 64, True, 0),
              (1, 4, 4, 128, 128, 64, False, 0),
@@ -215,6 +240,23 @@ NN_ROWS, NN_BATCH = 262_144, 1024
 SHELL_BATCH = 4
 SHELL_LEN = SHELL_PROMPT[1] + SHELL_NEW_TOKENS
 SHELL_SHAPE = (SHELL_BATCH, 9, 3, 64, 16, -(-SHELL_LEN // 16), 2048)
+# phase 12: migration, recovery, gateway and fleet at full smollm width.
+# Two shells (MMU page 16, 2048 pages, 512 host pages), one shell-bound
+# engine each (8 slots); each group of MIG_REQUESTS requests decodes
+# MIG_STEPS steps before its move; the gateway takes GW_ARRIVALS open
+# arrivals of GW_NEW_TOKENS tokens
+MIG_MMU = dict(page_size=16, n_pages=2048, host_pool_pages=512)
+MIG_REQUESTS, MIG_PROMPT, MIG_NEW_TOKENS, MIG_STEPS = 8, (64, 512), 64, 16
+MIG_BATCH, MIG_LEN = 8, MIG_PROMPT[1] + MIG_NEW_TOKENS
+MIG_SHAPE = (MIG_BATCH, 9, 3, 64, MIG_MMU["page_size"],
+             -(-MIG_LEN // MIG_MMU["page_size"]), MIG_MMU["n_pages"])
+GW_ARRIVALS, GW_NEW_TOKENS, GW_MAX_QUEUE = 32, 32, 4
+# phase 13: the dense attention cache.  h2o-danube-3-4b past its 4096
+# window (fp32 consistency, bf16 timing); smollm-135m dense vs paged
+DENSE_H2O_PROMPT, DENSE_ATOL, DENSE_DECODE_STEPS = 4200, 1e-3, 32
+DENSE_PREFILL_REPS, DENSE_TRACE_STEPS = 3, 8
+DENSE_SMOLLM = (4, 300, 16)          # rows, prompt, teacher-forced steps
+DENSE_SMOLLM_BF16 = (8, 512)         # rows, prompt (bf16 timing)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -278,6 +320,10 @@ def phase_kernels(pa, ref, gen):
     cases.append(("shell", SHELL_SHAPE, [SHELL_LEN, 0, 0, 0], None))
     cases.append(("shell2", SHELL_SHAPE, [0, 0, 301, 0], None))
     cases.append(("h2o", H2O_SHAPE, h2o_lens(), None))
+    # phase 12's engines (8 rows, maxp 36 for max_len 576): rows from empty
+    # to the longest, as the groups and the gateway leave them
+    cases.append(("mig", MIG_SHAPE, [MIG_LEN, 64, 0, 301, 512, 0, 97,
+                                     MIG_LEN - 1], None))
     main_err = None
     for name, shape, lens, tables in cases:
         for dtype in (torch.float32, torch.bfloat16):
@@ -882,6 +928,431 @@ def phase_shell(card, cfg, params):
     del shell, overlay
     torch.cuda.empty_cache()
     return launches
+
+
+def _live_kv(eng):
+    """{(rid, vpage): {"k", "v"}}: the written KV of every device-resident
+    page of the engine's running sequences, gathered on the card.  A
+    sequence's last position is the token sampled last, whose KV the next
+    decode step writes; a page's tail past the written positions holds
+    whatever its previous owner left, so it is cut off."""
+    from repro_torch.serve.paged_model import (flat_page_indices,
+                                               gather_kv_pages)
+    mmu, out, page = eng.mmu, {}, eng.page
+    for r in eng.slots:
+        if r is None:
+            continue
+        se = mmu._seqs[r.rid]
+        for pte in se.pages:
+            n = min(page, se.length - 1 - pte.vpage * page)
+            if not pte.on_host and n > 0:
+                kv = gather_kv_pages(eng.pools, flat_page_indices(
+                    [pte.ppage], eng.cfg.n_layers, mmu.config.n_pages))
+                out[(r.rid, pte.vpage)] = {s: t[:, :n]
+                                           for s, t in kv.items()}
+    return out
+
+
+def _same_kv(got, want, what):
+    check(set(got) == set(want) and len(want) > 0,
+          f"{what}: the destination maps other pages")
+    check(all(torch.equal(got[k][s], want[k][s]) for k in want
+              for s in ("k", "v")), f"{what}: KV bytes differ")
+
+
+def _mig_requests(cfg, seed, n):
+    """n prompts of MIG_PROMPT tokens, every other one sampled."""
+    rs = np.random.RandomState(seed)
+    return [(rs.randint(1, cfg.vocab_size, size=int(rs.randint(
+        MIG_PROMPT[0], MIG_PROMPT[1] + 1))).tolist(),
+        {"temperature": 0.8, "top_k": 40} if i % 2 else {})
+        for i in range(n)]
+
+
+def phase_migration(card, cfg, params):
+    """Phase 12: full-width smollm-135m (phase 4's bf16 weights) moved
+    between two shells on the card: stop-and-copy ``migrate``,
+    ``migrate_precopy``, in-place ``Shell.recover_slot`` of a wedged slot
+    and a ``FleetController.sweep`` that heals one; then a continuous
+    ``ServingGateway`` with open arrivals.  Each group's streams must
+    equal a control engine of the same geometry that serves the same
+    requests unmoved, stepped beside the source; the written KV on the
+    destination must equal, byte for byte on the card, the source's
+    (stop-and-copy, recovery) or the control's at the freeze (pre-copy,
+    whose source decodes between warm rounds); every decode on
+    ``pa_decode_kernel``."""
+    from repro_torch.core import Shell, ShellConfig
+    from repro_torch.core.migrate import migrate, migrate_precopy
+    from repro_torch.core.services.mmu import MMU, MMUConfig
+    from repro_torch.fleet import FleetController
+    from repro_torch.kernels.paged_attention import paged_attention as pa
+    from repro_torch.serve.engine import ServingEngine
+
+    t_phase = time.perf_counter()
+
+    def engine(mmu, **kw):
+        return ServingEngine(cfg, params, mmu, max_batch=MIG_BATCH,
+                             max_len=MIG_LEN, device="cuda", **kw)
+
+    shells, engines = [], []
+    for name, base in (("chip-a", 0), ("chip-b", 1000)):
+        sh = Shell(ShellConfig.make(services={"mmu": MMUConfig(**MIG_MMU)},
+                                    n_vfpgas=2), name=name, device="cuda")
+        sh.build()
+        shells.append(sh)
+        engines.append(engine(sh.services.get("mmu"), shell=sh, slot=0,
+                              tenant="gold", rid_base=base))
+    fc = FleetController()
+    for sh in shells:
+        fc.add_shell(sh)
+    out = {"card": card, "model": "smollm-135m (random weights, bf16)"}
+    # (mode, source member, requests, new tokens, seed of the prompts)
+    groups = (("stop_and_copy", 0, MIG_REQUESTS, MIG_NEW_TOKENS, 40),
+              ("pre_copy", 1, MIG_REQUESTS, MIG_NEW_TOKENS, 41),
+              ("recover_slot", 0, MIG_REQUESTS, MIG_NEW_TOKENS, 42),
+              ("fleet_sweep", 0, MIG_REQUESTS // 2, MIG_NEW_TOKENS // 2, 43))
+    _zero_counts()
+    steps0, ctrl_steps = [e.steps for e in engines], 0
+    for mode, si, n_req, n_new, seed in groups:
+        t0 = time.perf_counter()
+        src_sh, src = shells[si], engines[si]
+        dst_sh, dst = shells[1 - si], engines[1 - si]
+        ctrl = engine(MMU(MMUConfig(**MIG_MMU)), seed=src.seed,
+                      rid_base=src._rid_next - 1)
+        for prompt, kw in _mig_requests(cfg, seed, n_req):
+            src.submit(prompt, max_new_tokens=n_new, **kw)
+            ctrl.submit(prompt, max_new_tokens=n_new, **kw)
+        for _ in range(MIG_STEPS):
+            src.step()
+            ctrl.step()
+        torch.cuda.synchronize()
+        t_move = time.perf_counter()
+        if mode == "stop_and_copy":
+            before = _live_kv(src)
+            rep = migrate(src_sh, dst_sh, "gold")
+            _same_kv(_live_kv(dst), before, mode)
+        elif mode == "pre_copy":
+            rep = migrate_precopy(src_sh, dst_sh, "gold", max_rounds=4)
+            check(rep.precopy_rounds >= 1, "pre-copy ran no warm round")
+            for _ in range(rep.precopy_rounds):    # the source decoded
+                ctrl.step()
+            _same_kv(_live_kv(dst), _live_kv(ctrl), mode)
+        else:                  # the slot goes quiet with work pending
+            src_sh.health.heartbeat_timeout_s = 0.05
+            time.sleep(0.12)
+            before = _live_kv(src)
+            if mode == "recover_slot":
+                check(0 in src_sh.check_health()["wedged"],
+                      "the slot was not flagged wedged")
+                rep = src_sh.recover_slot(0)
+            else:
+                ds = [d for d in fc.sweep() if d.action == "recover"]
+                check(len(ds) == 1 and ds[0].ok
+                      and ds[0].src == src_sh.name,
+                      f"fleet sweep: {[d.to_dict() for d in ds]}")
+                rep = ds[0].report
+            src_sh.health.heartbeat_timeout_s = 30.0
+            dst = src
+            _same_kv(_live_kv(dst), before, mode)
+        t_moved = time.perf_counter()
+        check(rep.n_requests == n_req, f"{mode}: moved {rep.n_requests}")
+        while dst.pending() or ctrl.pending():
+            for e in (dst, ctrl):
+                if e.pending():
+                    e.step()
+        torch.cuda.synchronize()
+        want = {r.rid: r.out_tokens for r in ctrl.completed}
+        done = [r for e in engines for r in e.completed if r.rid in want]
+        check(len(done) == len(want) == n_req,
+              f"{mode}: {len(done)} completions of {n_req} requests")
+        check({r.rid: r.out_tokens for r in done} == want,
+              f"{mode}: streams differ from the unmoved control")
+        check(all(len(t) == n_new for t in want.values()),
+              f"{mode}: a stream has the wrong length")
+        check(all(sh.services.get("mmu").utilization()["pages_used"] == 0
+                  for sh in shells), f"{mode}: pages leaked")
+        ctrl_steps += ctrl.steps
+        out[mode] = {
+            "downtime_ms": rep.downtime_s * 1e3,
+            "quiesce_ms": rep.quiesce_s * 1e3,
+            "snapshot_ms": rep.snapshot_s * 1e3,
+            "restore_ms": (rep.restore_s + getattr(rep, "restart_s", 0.0))
+            * 1e3,
+            "bytes_shipped": rep.payload_bytes
+            + getattr(rep, "precopy_bytes", 0),
+            "freeze_bytes": rep.payload_bytes,
+            "warm_rounds": getattr(rep, "precopy_rounds", 0),
+            "warm_pages": getattr(rep, "precopy_pages", 0),
+            "freeze_pages": (rep.delta_pages if mode == "pre_copy"
+                             else rep.n_pages),
+            "move_wall_s": t_moved - t_move,
+            "group_wall_s": time.perf_counter() - t0}
+        del ctrl
+    launches = pa.LAUNCHES
+    steps = ctrl_steps + sum(e.steps - s for e, s in zip(engines, steps0))
+    check(launches == cfg.n_layers * steps,
+          f"phase 12 LAUNCHES {launches} != {cfg.n_layers} x {steps} steps")
+    check(all(n == 0 for n in _flash_counts().values())
+          and _ssd_count() == 0, "phase 12 launched a flash or SSD kernel")
+    out["pa_launches"], out["decode_steps"] = launches, steps
+    out["gateway"] = _gateway_arrivals(cfg, engines[0])
+    for sh in shells:
+        sh.close()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print("[12] " + json.dumps(out))
+    del engines, shells, fc
+    torch.cuda.empty_cache()
+
+
+def _gateway_arrivals(cfg, eng):
+    """A continuous, SLO-admitting gateway over the engine that owns the
+    tenant takes GW_ARRIVALS open arrivals (seeded exponential gaps, in
+    engine steps); the client retries each retryable GATEWAY_FULL
+    refusal after the next step.  One arrival with an infeasible deadline
+    and one that expires while queued must be refused, typed; every other
+    arrival must complete exactly once with all its tokens."""
+    from repro_torch.core import FaultKind, PortError
+    from repro_torch.kernels.paged_attention import paged_attention as pa
+    from repro_torch.serve.gateway import ServingGateway
+    rs = np.random.RandomState(50)
+    at = np.cumsum(rs.exponential(1.0, GW_ARRIVALS)).astype(int)
+    prompts = [rs.randint(1, cfg.vocab_size, size=int(rs.randint(
+        MIG_PROMPT[0], MIG_PROMPT[1] + 1))).tolist()
+        for _ in range(GW_ARRIVALS)]
+    gw = ServingGateway(eng, mode="continuous", admission="slo",
+                        max_queue=GW_MAX_QUEUE, min_obs=1)
+    check(gw._service_estimate(64, GW_NEW_TOKENS) is not None,
+          "the engine's step-time estimates are cold")
+    t0, steps0 = time.perf_counter(), eng.steps
+    pa.LAUNCHES = 0
+    kinds = {}
+    try:
+        gw.submit([5, 6, 7], max_new_tokens=GW_NEW_TOKENS, deadline_s=1e-6)
+    except PortError as e:
+        kinds[e.kind] = 1
+    check(kinds == {FaultKind.SLO_INFEASIBLE: 1},
+          f"an infeasible deadline was not refused: {kinds}")
+    # feasible at the door (3x its estimate), then the client pauses past
+    # it before the first step: the request expires in the queue
+    dl = 3 * gw._service_estimate(3, 1)
+    expiring = gw.submit([5, 6, 7], max_new_tokens=1, deadline_s=dl)
+    time.sleep(dl)
+    streams, waiting, step = [], list(range(GW_ARRIVALS)), 0
+    while waiting or gw.pending():
+        while waiting and at[waiting[0]] <= step:
+            try:
+                streams.append(gw.submit(prompts[waiting[0]],
+                                         max_new_tokens=GW_NEW_TOKENS,
+                                         priority=5))
+            except PortError as e:
+                check(e.kind == FaultKind.GATEWAY_FULL and e.retryable,
+                      f"an arrival was refused with {e.kind}")
+                kinds[e.kind] = kinds.get(e.kind, 0) + 1
+                break                    # retried after the next step
+            waiting.pop(0)
+        gw.step()
+        step += 1
+    torch.cuda.synchronize()
+    check(expiring.error is not None
+          and expiring.error.kind == FaultKind.SLO_EXPIRED,
+          "the deadlined arrival did not expire in the queue")
+    kinds[expiring.error.kind] = 1
+    check(kinds.get(FaultKind.GATEWAY_FULL, 0) >= 1,
+          "no GATEWAY_FULL back-pressure")
+    check(len(streams) == GW_ARRIVALS
+          and all(s.done and s.error is None
+                  and len(s.tokens) == GW_NEW_TOKENS for s in streams),
+          "a gateway stream is missing, failed or has the wrong length")
+    gids = [s.gid for s in gw.completed]
+    check(len(gids) == len(set(gids)) == GW_ARRIVALS,
+          f"{len(gids)} completions for {GW_ARRIVALS} arrivals")
+    check(pa.LAUNCHES == cfg.n_layers * (eng.steps - steps0),
+          "gateway decode launches")
+    st = gw.stats()
+    return {"arrivals": GW_ARRIVALS, "completed": st["completed"],
+            "refused": {str(k): v for k, v in kinds.items()},
+            "steps": eng.steps - steps0, "wall_s": time.perf_counter() - t0,
+            **{k: st[k] for k in ("ttft_p50_ms", "ttft_p99_ms",
+                                  "tpot_p50_ms", "tpot_p99_ms")},
+            "pa_launches": pa.LAUNCHES}
+
+
+def _timed_dense(T, params, cfg, toks, n_decode, reps):
+    """Median and p90 of ``reps`` prefills of ``toks`` and of ``n_decode``
+    greedy decode steps after the last, every kernel waited for; then
+    DENSE_TRACE_STEPS more steps traced with ``torch.profiler``: the
+    device's busy time per step (union of the kernel intervals), its idle
+    share against the untraced and the traced step, kernels per step."""
+    pre, dec = [], []
+    n_all = n_decode + DENSE_TRACE_STEPS
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = T.prefill(params, cfg, toks, toks.shape[1] + n_all,
+                                  cache_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        pre.append(time.perf_counter() - t0)
+    b, pos = toks.shape[0], toks.shape[1]
+    nxt = logits[:, :cfg.vocab_size].argmax(-1, keepdim=True)
+
+    def step(t):
+        logits, c = T.decode_step(params, cfg, cache, nxt,
+                                  torch.full((b,), pos + t, device="cuda"))
+        return logits[:, :cfg.vocab_size].argmax(-1, keepdim=True), c, logits
+
+    for t in range(n_decode):
+        t0 = time.perf_counter()
+        nxt, cache, logits = step(t)
+        torch.cuda.synchronize()
+        dec.append(time.perf_counter() - t0)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for t in range(n_decode, n_all):
+            nxt, cache, logits = step(t)
+            torch.cuda.synchronize()
+        traced = (time.perf_counter() - t0) * 1e3 / DENSE_TRACE_STEPS
+    check(bool(torch.isfinite(logits).all()), "non-finite dense logits")
+    kernels, busy, _ = _profile_summary(prof, DENSE_TRACE_STEPS)
+    pre, dec = np.asarray(pre), np.asarray(dec) * 1e3
+    return {"prefill_s_p50": float(np.percentile(pre, 50)),
+            "prefill_s_p90": float(np.percentile(pre, 90)),
+            "decode_step_ms_p50": float(np.percentile(dec, 50)),
+            "decode_step_ms_p90": float(np.percentile(dec, 90)),
+            "prefills": reps, "decode_steps": n_decode,
+            "traced_steps": DENSE_TRACE_STEPS,
+            "decode_step_ms_traced": traced,
+            "device_busy_ms_per_step": busy,
+            "device_idle_share_untraced": 1 - busy / float(np.mean(dec)),
+            "device_idle_share_traced": 1 - busy / traced,
+            "kernels_per_step": len(kernels) / DENSE_TRACE_STEPS}
+
+
+def phase_dense_cache(card, cfg, params):
+    """Phase 13: the dense attention cache (``transformer.init_cache``,
+    ``prefill``, ``decode_step``) at full width.  h2o-danube-3-4b, fp32:
+    decode after a DENSE_H2O_PROMPT-token prefill (past the 4096 window:
+    the ring fill) against the last logits of a prefill one token longer.
+    smollm-135m, fp32: dense prefill and DENSE_SMOLLM teacher-forced
+    decode steps against the paged engine's prefill and decode logits
+    (``serve/paged_model.py``'s), on the same weights.  Then bf16 timing
+    of both models' dense prefill and decode.  The dense prefill's
+    attention runs on the flash forward kernel (bf16: the tensor-core
+    one), the dense decode's is plain PyTorch, the paged decode's
+    ``pa_decode_kernel``."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.services.mmu import MMU, MMUConfig
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.paged_attention import paged_attention as pa
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.paged_model import (_decode_logits,
+                                               _prefill_logits, make_pools)
+
+    t_phase = time.perf_counter()
+    out = {"card": card}
+    hcfg = get_config("h2o-danube-3-4b")
+    gen = torch.Generator(device="cuda")
+    s = DENSE_H2O_PROMPT
+    toks = torch.randint(3, hcfg.vocab_size, (1, s + 1),
+                         generator=gen.manual_seed(5), device="cuda")
+    hp = T.init_params(hcfg, generator=gen.manual_seed(3),
+                       dtype=torch.float32, device="cuda")
+    _zero_counts()
+    _, cache = T.prefill(hp, hcfg, toks[:, :s], s + 1,
+                         cache_dtype=torch.float32)
+    check(cache["k"].shape[2] == hcfg.swa_window, "no ring of the window")
+    got, _ = T.decode_step(hp, hcfg, cache, toks[:, s:],
+                           torch.full((1,), s, device="cuda"))
+    del cache
+    want, _ = T.prefill(hp, hcfg, toks, s + 1, cache_dtype=torch.float32)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    check(bool(torch.isfinite(got).all()), "non-finite h2o decode logits")
+    check(err <= DENSE_ATOL, f"h2o decode vs prefill: {err}")
+    check(fa.FMA_LAUNCHES == 2 * hcfg.n_layers and pa.LAUNCHES == 0,
+          f"h2o fp32 dense path launches: fwd FMA {fa.FMA_LAUNCHES}, "
+          f"paged {pa.LAUNCHES}")
+    out["h2o_fp32_consistency"] = {
+        "prompt": s, "window": hcfg.swa_window, "max_abs_err": err,
+        "atol": DENSE_ATOL, "max_abs_logit": float(want.abs().max()),
+        "fwd_fma_launches": fa.FMA_LAUNCHES}
+    del hp, got, want
+    torch.cuda.empty_cache()
+
+    # smollm fp32: dense vs the paged engine's logits, teacher forced
+    b, sp, n = DENSE_SMOLLM
+    sp32 = T.init_params(cfg, generator=gen.manual_seed(0),
+                         dtype=torch.float32, device="cuda")
+    seq = torch.randint(3, cfg.vocab_size, (b, sp + n),
+                        generator=gen.manual_seed(6), device="cuda")
+    mmu = MMU(MMUConfig(page_size=16, n_pages=256))
+    pools = make_pools(cfg, 256, 16, dtype=torch.float32, device="cuda")
+    rids = list(range(1, b + 1))
+    for r in rids:
+        mmu.alloc_seq(r, sp)
+    maxp = -(-(sp + n) // 16)
+    zeros = torch.zeros(b, dtype=torch.int32, device="cuda")
+    _zero_counts()
+    dl, cache = T.prefill(sp32, cfg, seq[:, :sp], sp + n,
+                          cache_dtype=torch.float32)
+    pl = _prefill_logits(sp32, pools, seq[:, :sp],
+                         torch.full((b,), sp, device="cuda"), zeros, zeros,
+                         torch.as_tensor(mmu.block_table(rids, maxp),
+                                         device="cuda"),
+                         cfg=cfg, page_size=16)
+    errs = [float((dl[:, :cfg.vocab_size] - pl).abs().max())]
+    for t in range(sp, sp + n - 1):
+        for r in rids:
+            mmu.extend_seq(r, 1)
+        tables = torch.as_tensor(mmu.block_table(rids, maxp), device="cuda")
+        dl, cache = T.decode_step(sp32, cfg, cache, seq[:, t:t + 1],
+                                  torch.full((b,), t, device="cuda"))
+        pl = _decode_logits(sp32, pools, tables,
+                            torch.full((b,), t, dtype=torch.int32,
+                                       device="cuda"), seq[:, t],
+                            cfg=cfg, page_size=16)
+        errs.append(float((dl[:, :cfg.vocab_size] - pl).abs().max()))
+    torch.cuda.synchronize()
+    check(max(errs) <= DENSE_ATOL, f"smollm dense vs paged: {max(errs)}")
+    check(pa.LAUNCHES == cfg.n_layers * (n - 1)
+          and fa.FMA_LAUNCHES == cfg.n_layers,
+          f"smollm fp32 launches: paged {pa.LAUNCHES}, fwd "
+          f"{fa.FMA_LAUNCHES}")
+    out["smollm_fp32_dense_vs_paged"] = {
+        "rows": b, "prompt": sp, "decode_steps": n - 1,
+        "max_abs_err": max(errs), "atol": DENSE_ATOL,
+        "pa_launches": pa.LAUNCHES}
+    del sp32, cache, pools, mmu
+
+    # bf16 timing: smollm (phase 4's weights) and h2o-danube
+    b, sp = DENSE_SMOLLM_BF16
+    toks = torch.randint(3, cfg.vocab_size, (b, sp),
+                         generator=gen.manual_seed(7), device="cuda")
+    _zero_counts()
+    out["smollm_bf16"] = _timed_dense(T, params, cfg, toks,
+                                      DENSE_DECODE_STEPS, DENSE_PREFILL_REPS)
+    check(fa.WGMMA_LAUNCHES == cfg.n_layers * DENSE_PREFILL_REPS
+          and fa.FMA_LAUNCHES == 0 and pa.LAUNCHES == 0,
+          "smollm bf16 dense prefill not on fa_fwd_wgmma_kernel")
+    out["smollm_bf16"].update(rows=b, prompt=sp,
+                              fwd_wgmma_launches=fa.WGMMA_LAUNCHES)
+    hp = T.init_params(hcfg, generator=gen.manual_seed(3),
+                       dtype=torch.bfloat16, device="cuda")
+    _zero_counts()
+    out["h2o_bf16"] = _timed_dense(T, hp, hcfg, toks=torch.randint(
+        3, hcfg.vocab_size, (1, s), generator=gen.manual_seed(8),
+        device="cuda"), n_decode=DENSE_DECODE_STEPS,
+        reps=DENSE_PREFILL_REPS)
+    check(fa.WGMMA_LAUNCHES == hcfg.n_layers * DENSE_PREFILL_REPS
+          and fa.FMA_LAUNCHES == 0 and pa.LAUNCHES == 0,
+          "h2o bf16 dense prefill not on fa_fwd_wgmma_kernel")
+    out["h2o_bf16"].update(rows=1, prompt=s,
+                           fwd_wgmma_launches=fa.WGMMA_LAUNCHES)
+    del hp
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print("[13] " + json.dumps(out))
 
 
 def phase_card_vs_cpu():
@@ -1953,6 +2424,8 @@ def main() -> int:
     phase_h2o_serving(card)
     _zero_counts()
     phase_shell(card, cfg, params)
+    phase_migration(card, cfg, params)
+    phase_dense_cache(card, cfg, params)
     fa_launches, trainer, step_fn = phase_train(card)
     check(_ssd_count() == 0, "the training path launched the SSD kernel")
     ssd_launches, mcfg, mparams = phase_mamba_serving(card)

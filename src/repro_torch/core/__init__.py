@@ -3,10 +3,8 @@
 Twin of ``repro.core``.  Static layer (never reconfigured) / dynamic
 layer (reconfigurable services) / application layer (vFPGA slots +
 cThreads), with credit-based fair sharing, run-time reconfiguration, and
-a unified multi-stream interface.  The reference's ``migrate`` exports
-(``MigrationError``, ``MigrationReport``, ``RecoveryReport``, ``migrate``,
-``recover_tenant_local``) are not here: ``core/migrate.py`` waits for
-ROADMAP item 13.
+a unified multi-stream interface, and live tenant migration and in-place
+recovery (``core/migrate.py``).
 """
 from repro_torch.core.cthread import Alloc, CThread
 from repro_torch.core.faults import (FaultKind, FaultPlan, FaultSpec,
@@ -14,6 +12,9 @@ from repro_torch.core.faults import (FaultKind, FaultPlan, FaultSpec,
 from repro_torch.core.health import HealthMonitor, Watchdog
 from repro_torch.core.interfaces import (AppInterface, Completion, Oper,
                                          SgEntry)
+from repro_torch.core.migrate import (MigrationError, MigrationReport,
+                                      RecoveryReport, migrate,
+                                      recover_tenant_local)
 from repro_torch.core.port import (Invocation, Port, PortCapabilities,
                                    PortError, PortFuture, PortState,
                                    ServicePort, VFpgaPort)
@@ -31,4 +32,6 @@ __all__ = [
     "HealthMonitor", "Watchdog",
     "BuildReport", "Shell", "ShellConfig", "ShellScheduler", "StaticLayer",
     "TensorSpec", "Tenant", "TransferEngine", "AppArtifact", "VFpga",
+    "MigrationError", "MigrationReport", "RecoveryReport", "migrate",
+    "recover_tenant_local",
 ]

@@ -9,10 +9,9 @@ an app artifact with its weights (for app bitstreams).
 utility channel; :class:`repro_torch.core.shell.Shell` applies them —
 ``Shell.reconfigure(slot, path)`` performs the drain-aware hot-swap.
 
-Weight trees may hold tensors (on any device) or numpy arrays.  numpy has
-no bfloat16, so a bf16 tensor is stored as its int16 bits under a
-``{"__bfloat16_bits__": ...}`` tag and comes back as a bf16 tensor on the
-host; it is never upcast.
+Weight trees may hold tensors (on any device) or numpy arrays; they are
+stored by :mod:`repro_torch.core.host_codec` (a bf16 tensor as its int16
+bits under a ``{"__bfloat16_bits__": ...}`` tag, never upcast).
 """
 from __future__ import annotations
 
@@ -22,48 +21,14 @@ from dataclasses import asdict, dataclass
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Tuple
 
-import numpy as np
-import torch
-from torch.utils import _pytree as pytree
-
 from repro_torch.core import bitstream as B
 from repro_torch.core.bitstream import BitstreamError
+from repro_torch.core.host_codec import (BF16_TAG,  # noqa: F401
+                                         weights_from_host, weights_to_host)
 from repro_torch.core.port import PortCapabilities
 from repro_torch.core.services.base import ServiceRequirement
 from repro_torch.core.shell import SERVICE_TYPES, Shell, ShellConfig
 from repro_torch.core.vfpga import AppArtifact
-
-BF16_TAG = "__bfloat16_bits__"
-
-
-# ------------------------------------------------------- weight trees ----
-def _to_host(x: Any) -> Any:
-    """One leaf of a weight tree -> numpy (bf16 as tagged int16 bits)."""
-    if x is None:
-        return None
-    if not isinstance(x, torch.Tensor):
-        return np.asarray(x)
-    x = x.detach().cpu()
-    if x.dtype == torch.bfloat16:
-        return {BF16_TAG: x.view(torch.int16).numpy()}
-    return x.numpy()
-
-
-def weights_to_host(tree: Any) -> Any:
-    return pytree.tree_map(_to_host, tree)
-
-
-def weights_from_host(tree: Any) -> Any:
-    """Inverse of :func:`weights_to_host`: tagged bf16 bits become bf16
-    tensors; every other leaf stays the numpy array it was stored as."""
-    if isinstance(tree, dict):
-        if set(tree) == {BF16_TAG}:
-            return torch.from_numpy(np.asarray(tree[BF16_TAG])).view(
-                torch.bfloat16)
-        return {k: weights_from_host(v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(weights_from_host(v) for v in tree)
-    return tree
 
 
 # ------------------------------------------------------- config codecs ----

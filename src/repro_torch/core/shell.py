@@ -469,14 +469,19 @@ class Shell:
         return [p for p in self.ports.values() if isinstance(p, VFpgaPort)]
 
     def recover_slot(self, slot: int, *, drain_timeout: float = 5.0):
-        """Recover ONE slot in place (quiesce, snapshot the tenant through
-        the migration container, cold-reset, restore).  The port has no
-        migration container yet: it comes with ``core/migrate.py`` and the
-        engine's migration state (ROADMAP items 11 and 13), so this raises
-        and a watchdog sweep records the slot under ``failed``."""
-        raise NotImplementedError(
-            "in-place slot recovery needs core/migrate.py, which waits for "
-            "ROADMAP items 11 and 13 of the port")
+        """Recover ONE slot in place: quiesce (force-failing a stuck
+        in-flight tail), snapshot the tenant through the migration
+        container, cold-reset the engine's device soft state, restore —
+        KV pages (device + refcounted host payloads) survive and
+        decoding resumes token-for-token.  Returns a
+        :class:`~repro_torch.core.migrate.RecoveryReport`."""
+        from repro_torch.core.migrate import recover_tenant_local
+        report = recover_tenant_local(self, slot,
+                                      drain_timeout=drain_timeout)
+        self.health.record_recovery(slot, report.tenant,
+                                    report.downtime_s)
+        self.health.beat(slot)        # fresh grace period post-recovery
+        return report
 
     def start_watchdog(self, *, interval_s: float = 0.25,
                        auto_recover: bool = True) -> Watchdog:

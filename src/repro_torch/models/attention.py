@@ -1,14 +1,25 @@
-"""Attention: GQA projections (the reference's ``x @ W`` layout) and the
-full-sequence ``attend_chunked``.
+"""Attention: GQA projections (the reference's ``x @ W`` layout), the
+full-sequence ``attend_chunked`` and the dense-cache decode paths.
 
-Twin of ``repro.models.attention``'s ``qkv_proj``, ``out_proj`` and
-``attend_chunked``.  The reference documents ``attend_chunked(fused=True)``
-as the region that executes as the flash-attention kernel on the TPU; here
-a CUDA tensor always takes the hand-written kernels through
-``ops.mha_fused``, and a CPU tensor the reference's query-chunked exact
-softmax.  The dense-cache ``attend_decode*`` paths belong to a later slice;
-the paged serving path attends through ``repro_torch.serve.paged_model``
-and the paged-attention kernel.
+Twin of ``repro.models.attention``.  The reference documents
+``attend_chunked(fused=True)`` as the region that executes as the
+flash-attention kernel on the TPU; here a CUDA tensor always takes the
+hand-written kernels through ``ops.mha_fused``, and a CPU tensor the
+reference's query-chunked exact softmax.
+
+  * ``attend_decode``     — one new token against a dense KV cache;
+  * ``attend_decode_swa`` — one new token against a ring-buffer window
+    cache;
+  * ``cache_update``, ``cache_update_uniform``, ``cache_update_ring`` —
+    the one-token cache writes.
+
+The decode paths are the reference's plain einsums (no Pallas kernel sits
+under them), so they stay plain PyTorch on both devices.  The reference's
+caches are functional; here the writes land in place (``index_put_``) and
+the cache tensors are returned, the port's form of a donated buffer.  The
+paged serving path attends through ``repro_torch.serve.paged_model`` and
+the paged-attention kernel.  ``attend_decode_cp`` (context-parallel
+decode) belongs to the tensor-parallel slice (ROADMAP queue 1 item 14).
 """
 from __future__ import annotations
 
@@ -86,3 +97,76 @@ def attend_chunked(q, k, v, *, causal: bool = True, window: int = 0,
         att = torch.softmax(scores, dim=-1).to(ve.dtype)
         outs.append(torch.einsum("bhqs,bshd->bqhd", att, ve))
     return torch.cat(outs, dim=1)
+
+
+# -------------------------------------------------------------- decode ----
+def _decode_softmax(q, k_cache, v_cache, valid):
+    """q (B,1,H,hd) against caches (B,S,K,hd); ``valid`` (B,S) marks the
+    keys each row sees.  Scores in float32 (the reference's
+    ``preferred_element_type``), probabilities cast to the cache dtype."""
+    b, _, h, hd = q.shape
+    kh = k_cache.shape[2]
+    qc = q.reshape(b, 1, kh, h // kh, hd)
+    scores = torch.einsum("bqkgh,bskh->bkgqs", qc.float(),
+                          k_cache.float()) * hd ** -0.5
+    scores = torch.where(valid[:, None, None, None, :], scores, NEG_INF)
+    att = torch.softmax(scores, dim=-1).to(v_cache.dtype)
+    out = torch.einsum("bkgqs,bskh->bqkgh", att, v_cache)
+    return out.reshape(b, 1, h, hd)
+
+
+def attend_decode(q, k_cache, v_cache, cache_len):
+    """q (B,1,H,hd); caches (B,Smax,K,hd); cache_len (B,) valid entries
+    (including the token written this step)."""
+    pos = torch.arange(k_cache.shape[1], device=q.device)
+    return _decode_softmax(q, k_cache, v_cache,
+                           pos[None, :] < cache_len.to(q.device)[:, None])
+
+
+def attend_decode_swa(q, k_cache, v_cache, pos, window: int):
+    """Decode against a ring-buffer cache of size W=window.
+
+    ``pos`` (B,): absolute position of the current token (already
+    written).  Valid entries: absolute positions in (pos-W, pos]; slot i
+    holds the most recent token with abs_pos % W == i."""
+    w = k_cache.shape[1]
+    pos = pos.to(q.device).long()[:, None]
+    slots = torch.arange(w, device=q.device)[None, :]
+    abs_pos = pos - torch.remainder(pos - slots, w)
+    valid = (abs_pos >= 0) & (abs_pos > pos - w) & (abs_pos <= pos)
+    return _decode_softmax(q, k_cache, v_cache, valid)
+
+
+def _write_rows(cache, new, idx):
+    """cache[b, idx[b]] = new[b, 0] for every row, in place."""
+    rows = torch.arange(cache.shape[0], device=cache.device)
+    cache[rows, idx.to(cache.device).long()] = new[:, 0].to(cache.dtype)
+
+
+def cache_update(k_cache, v_cache, k_new, v_new, cache_len):
+    """Write one token per row at position cache_len (B,).  Positions
+    past the end clamp to the last slot, as the reference's
+    ``dynamic_update_slice`` does."""
+    idx = cache_len.clamp(0, k_cache.shape[1] - 1)
+    _write_rows(k_cache, k_new, idx)
+    _write_rows(v_cache, v_new, idx)
+    return k_cache, v_cache
+
+
+def cache_update_uniform(k_cache, v_cache, k_new, v_new, pos):
+    """All rows write at the SAME position (static-batch decode): one
+    slice write (the reference's single ``dynamic_update_slice``, start
+    clamped likewise)."""
+    p = torch.as_tensor(pos, device=k_cache.device).long().reshape(1)
+    p = p.clamp(0, k_cache.shape[1] - 1)
+    k_cache.index_copy_(1, p, k_new.to(k_cache.dtype))
+    v_cache.index_copy_(1, p, v_new.to(v_cache.dtype))
+    return k_cache, v_cache
+
+
+def cache_update_ring(k_cache, v_cache, k_new, v_new, pos):
+    """SWA ring buffer of size W: write at pos % W."""
+    slot = torch.remainder(pos.long(), k_cache.shape[1])
+    _write_rows(k_cache, k_new, slot)
+    _write_rows(v_cache, v_new, slot)
+    return k_cache, v_cache

@@ -1,5 +1,5 @@
 """Model assembly: parameter init, the full-sequence forward, the LM head,
-the training loss and the dense-cache serving path of mamba models.
+the training loss and the dense-cache serving path.
 
 Twin of ``repro.models.transformer`` for uniform architectures: dense
 attention (``block_pattern == ("attn",)``) and Mamba-2
@@ -10,10 +10,12 @@ random numbers come from a ``torch.Generator`` and differ from JAX's.
 parameters (the reference's ``lax.scan``).  Attention goes through
 ``attention.attend_chunked`` (the flash-attention kernels on the card),
 the mamba blocks' scan through ``kernels/ssd/ops.ssd`` (the SSD kernel on
-the card).  ``prefill`` and ``decode_step`` serve mamba models through
-their O(1) decode cache; the dense attention cache (ROADMAP queue 1 item
-9), ``remat`` other than ``"none"``, hybrid, MoE and encoder-decoder
-models belong to later slices and raise here.
+the card).  ``init_cache``, ``prefill`` and ``decode_step`` serve both
+families through a dense decode cache: per-layer KV of ``max_len``
+positions, or for a sliding-window model a ring of the window; a mamba
+model's O(1) conv and SSM states.  ``remat`` other than ``"none"``,
+hybrid, MoE and encoder-decoder models belong to later slices and raise
+here.
 """
 from __future__ import annotations
 
@@ -249,17 +251,6 @@ def loss_fn(params, cfg: ModelConfig, batch, *, remat: str = "none",
 
 
 # ================================================================= caches
-_DENSE_CACHE = ("the dense attention cache (prefill/decode_step of "
-                "attention models) waits for ROADMAP queue 1 item 9; the "
-                "port serves attention models through serve/engine.py")
-
-
-def _mamba_only(cfg: ModelConfig) -> None:
-    _check_supported(cfg)
-    if cfg.block_pattern[0] != "mamba":
-        raise NotImplementedError(f"{cfg.arch_id}: {_DENSE_CACHE}")
-
-
 def decode_cache_len(cfg: ModelConfig, max_len: int) -> int:
     """Physical KV length: SWA archs cap at their window (ring buffer)."""
     if cfg.swa_window:
@@ -271,14 +262,47 @@ def decode_cache_len(cfg: ModelConfig, max_len: int) -> int:
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                dtype=torch.bfloat16, device=None) -> Dict:
-    """Decode state, stacked on the layer axis: for a mamba model
+    """Decode state, stacked on the layer axis.  An attention model:
+    {"k", "v"} each (L,B,KL,K,hd) in ``dtype``, KL = ``decode_cache_len``
+    (a ring of the window for a sliding-window model).  A mamba model:
     {"mamba": {"conv" (L,B,K-1,C) in ``dtype``, "ssm" (L,B,H,P,N)
-    float32}}; its size does not depend on ``max_len``."""
-    _mamba_only(cfg)
-    one = ssm.mamba_cache_init(cfg, batch, dtype=dtype,
-                               device=resolve_device(device))
-    return {"mamba": {k: v.expand((cfg.n_layers,) + v.shape).clone()
-                      for k, v in one.items()}}
+    float32}}, whose size does not depend on ``max_len``."""
+    _check_supported(cfg)
+    device = resolve_device(device)
+    if cfg.block_pattern[0] == "mamba":
+        one = ssm.mamba_cache_init(cfg, batch, dtype=dtype, device=device)
+        return {"mamba": {k: v.expand((cfg.n_layers,) + v.shape).clone()
+                          for k, v in one.items()}}
+    shape = (cfg.n_layers, batch, decode_cache_len(cfg, max_len),
+             cfg.n_kv_heads, cfg.resolved_head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _attn_block_decode(p, cfg: ModelConfig, x, kc, vc, pos, *,
+                       uniform_pos: bool = False):
+    """One-token attention block.  x (B,1,D); kc/vc (B,KL,K,hd), written
+    in place; pos (B,)."""
+    kl = kc.shape[1]
+    ring = bool(cfg.swa_window) or cfg.family == "hybrid"
+    h = layers.norm_apply(p["norm1"], x, cfg.norm_eps)
+    q, k, v = attention.qkv_proj(p["attn"], cfg, h)
+    if cfg.pos_embed == "rope":
+        q = layers.apply_rope(q, pos[:, None], cfg.rope_theta)
+        k = layers.apply_rope(k, pos[:, None], cfg.rope_theta)
+    if ring:
+        attention.cache_update_ring(kc, vc, k, v, pos)
+        att = attention.attend_decode_swa(q, kc, vc, pos,
+                                          cfg.swa_window or kl)
+    else:
+        if uniform_pos:
+            attention.cache_update_uniform(kc, vc, k, v, pos[0])
+        else:
+            attention.cache_update(kc, vc, k, v, pos)
+        att = attention.attend_decode(q, kc, vc, pos + 1)
+    x = x + attention.out_proj(p["attn"], cfg, att)
+    h = layers.norm_apply(p["norm2"], x, cfg.norm_eps)
+    return x + mlp.mlp_apply(p["ffn"], cfg, h)
 
 
 def _mamba_block_decode(p, cfg: ModelConfig, x, cache):
@@ -294,34 +318,70 @@ def _embed_tokens_decode(params, cfg: ModelConfig, tokens, pos):
 
 
 @torch.no_grad()
-def decode_step(params, cfg: ModelConfig, cache: Dict, tokens, pos):
+def decode_step(params, cfg: ModelConfig, cache: Dict, tokens, pos, *,
+                uniform_pos: bool = False, cp_mesh=None):
     """One decode step.  tokens (B,1) integer; pos (B,) current positions
-    (unused by a mamba model).
+    (unused by a mamba model).  ``uniform_pos``: every row writes at
+    ``pos[0]`` (static-batch decode).
 
     Returns (logits (B,V) float32, cache).  The cache is updated in place
     and returned: the port's form of the reference's donated cache."""
-    _mamba_only(cfg)
+    _check_supported(cfg)
+    if cp_mesh is not None:
+        raise NotImplementedError(
+            "context-parallel decode (cp_mesh) waits for the tensor-parallel "
+            "slice, ROADMAP queue 1 item 14")
     x = _embed_tokens_decode(params, cfg, tokens, pos)
-    mc = cache["mamba"]
-    for i, lp in enumerate(_unstack(params["layers"], cfg.n_layers)):
-        x, new = _mamba_block_decode(
-            lp, cfg, x, {"conv": mc["conv"][i], "ssm": mc["ssm"][i]})
-        mc["conv"][i].copy_(new["conv"])
-        mc["ssm"][i].copy_(new["ssm"])
+    per_layer = _unstack(params["layers"], cfg.n_layers)
+    if cfg.block_pattern[0] == "mamba":
+        mc = cache["mamba"]
+        for i, lp in enumerate(per_layer):
+            x, new = _mamba_block_decode(
+                lp, cfg, x, {"conv": mc["conv"][i], "ssm": mc["ssm"][i]})
+            mc["conv"][i].copy_(new["conv"])
+            mc["ssm"][i].copy_(new["ssm"])
+    else:
+        pos = torch.as_tensor(pos, device=x.device).long()
+        for i, lp in enumerate(per_layer):
+            x = _attn_block_decode(lp, cfg, x, cache["k"][i],
+                                   cache["v"][i], pos,
+                                   uniform_pos=uniform_pos)
     x = layers.norm_apply(params["final_norm"], x, cfg.norm_eps)
     return lm_logits(params, cfg, x)[:, 0], cache
+
+
+def _fill(kc, knew):
+    """Write a prompt's KV ``knew`` (L,B,S,K,hd) into the cache ``kc``
+    (L,B,KL,K,hd) in place: at positions 0..S-1 when it fits, else the
+    last KL tokens, each at slot abs_pos % KL (the ring).  Tail row j is
+    absolute position S-KL+j, so the ring is the tail rolled by
+    (S-KL) % KL."""
+    s_len, kl = knew.shape[2], kc.shape[2]
+    if s_len <= kl:
+        kc[:, :, :s_len] = knew
+    else:
+        kc.copy_(torch.roll(knew[:, :, s_len - kl:], (s_len - kl) % kl,
+                            dims=2))
+    return kc
 
 
 @torch.no_grad()
 def prefill(params, cfg: ModelConfig, tokens, max_len: int, *,
             cache_dtype=torch.bfloat16):
     """Run the full prompt, build the decode cache, return last-token
-    logits.  tokens (B, S).  Returns (logits (B,V) float32, cache): the
-    conv states in ``cache_dtype``, the SSM states float32, as
-    ``init_cache`` lays them out."""
-    _mamba_only(cfg)
-    hidden, _, _, (_, _, states) = forward(params, cfg, tokens,
-                                           collect_kv=True)
-    cache = {"mamba": {"conv": states["conv"].to(cache_dtype),
-                       "ssm": states["ssm"].float()}}
+    logits.  tokens (B, S).  Returns (logits (B,V) float32, cache) laid
+    out as ``init_cache`` lays it out: KV in ``cache_dtype`` sized for
+    ``max_len`` (or the window), or the mamba conv states in
+    ``cache_dtype`` and SSM states float32."""
+    _check_supported(cfg)
+    hidden, _, kv, (_, _, states) = forward(params, cfg, tokens,
+                                            collect_kv=True)
+    if states is not None:
+        cache = {"mamba": {"conv": states["conv"].to(cache_dtype),
+                           "ssm": states["ssm"].float()}}
+    else:
+        cache = init_cache(cfg, tokens.shape[0], max_len, dtype=cache_dtype,
+                           device=hidden.device)
+        _fill(cache["k"], kv[0])
+        _fill(cache["v"], kv[1])
     return lm_logits(params, cfg, hidden[:, -1:])[:, 0], cache

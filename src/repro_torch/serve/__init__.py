@@ -1,1 +1,17 @@
-"""Paged serving datapath of the port (twin of ``repro.serve``)."""
+"""Paged serving datapath of the port (twin of ``repro.serve``).
+
+Exports what the reference's package does, less its JAX retrace guard
+(``TRACE_COUNTS``: eager PyTorch does not trace) and the disaggregated
+prefill/decode hand-off, which belongs to the tensor-parallel slice
+(ROADMAP queue 1 item 14)."""
+from repro_torch.serve.engine import Request, ServingEngine
+from repro_torch.serve.gateway import ServingGateway, TokenStream
+from repro_torch.serve.paged_model import (decode_step_paged, make_pools,
+                                           prefill_chunk_paged,
+                                           prefill_paged, write_prefill)
+from repro_torch.serve.sampler import (SamplerConfig, fold_row_keys, sample,
+                                       sample_per_row)
+__all__ = ["Request", "ServingEngine", "ServingGateway", "TokenStream",
+           "decode_step_paged", "make_pools", "prefill_chunk_paged",
+           "prefill_paged", "write_prefill",
+           "SamplerConfig", "fold_row_keys", "sample", "sample_per_row"]

@@ -30,19 +30,28 @@ Hot-path invariants, as in the reference:
     (``_settle_io``) and ``flush_io()`` drains the tail.  Each step beats
     the shell's health monitor for the slot, and a quarantined tenant is
     refused at ``submit``.
+  * **Gateway hooks.**  ``admission_hook(engine)`` runs before every
+    admission pass and ``token_sink(req, token, done)`` sees every emitted
+    token; step-time EWMAs (``ewma_prefill_s_per_tok``,
+    ``ewma_decode_step_s``) feed the gateway's SLO admission.
+  * **Migration state.**  ``snapshot_state``/``restore_state`` move a
+    quiesced tenant (requests, queue, MMU page tables, the KV of every
+    live page, host-evicted payloads, the sampling seed) through
+    ``repro_torch.core.migrate``'s container; bf16 KV travels as tagged
+    int16 bits (``repro_torch.core.host_codec``).  The sampling seed rides
+    the header so that sampled streams continue exactly across a move; a
+    reference container's JAX PRNG key is ignored (greedy streams carry
+    over between the two packages).
 
 Not in this port yet: tensor-parallel meshes (the constructor raises for
-``mesh`` and ``collectives``), migration (``snapshot_state``/
-``restore_state``/``evacuate``), and the gateway's hooks and step-time
-estimates (``admission_hook``, ``token_sink``, the EWMAs), which come with
-the gateway.
+``mesh`` and ``collectives``).
 """
 from __future__ import annotations
 
 import time
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -50,6 +59,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.faults import FaultKind
 from repro_torch.core.port import Invocation, PortError
+from repro_torch.core.host_codec import weights_from_host, weights_to_host
 from repro_torch.core.services.mmu import MMU
 from repro_torch.device import resolve_device
 from repro_torch.serve.paged_model import (decode_step_paged,
@@ -69,6 +79,8 @@ class Request:
     top_k: int = 0                    # 0 = disabled
     top_p: float = 1.0                # >= 1 = disabled
     tid: int = 0                      # submitting cThread
+    priority: int = 0                 # scheduler priority (higher = sooner)
+    deadline_s: Optional[float] = None  # absolute SLO deadline (perf_counter)
     out_tokens: List[int] = field(default_factory=list)
     t_submit: float = 0.0
     t_first_token: float = 0.0
@@ -120,6 +132,19 @@ class ServingEngine:
         # and total seconds spent in prefill forwards, for measurement
         self.decode_step_times: List[float] = []
         self.prefill_s = 0.0
+        # step-time EWMAs (SLO admission feasibility inputs): seconds per
+        # prefilled prompt token and per fused decode step, each sample
+        # clamped against the running estimate
+        self.ewma_prefill_s_per_tok: Optional[float] = None
+        self.ewma_decode_step_s: Optional[float] = None
+        self.prefill_obs = 0
+        self.decode_obs = 0
+        self._ewma_alpha = 0.25
+        # gateway hooks: ``admission_hook(engine)`` runs at the top of
+        # every step (before ``_admit``); ``token_sink(req, token, done)``
+        # fires for every emitted token (prefill first tokens included)
+        self.admission_hook = None
+        self.token_sink = None
         # KV pools in the model's dtype (float32 params -> float32 pools,
         # as the reference engine keeps them)
         self.pools = make_pools(cfg, mmu.config.n_pages, self.page,
@@ -173,16 +198,18 @@ class ServingEngine:
         return {"k": kv["k"].cpu(), "v": kv["v"].cpu()}
 
     def _pager_scatter(self, ppage: int, data) -> None:
-        """Write a preserved page payload into a freshly mapped device
-        page (MMU fault-back-in path)."""
+        """Write a preserved page payload (tensors, or a container's
+        numpy arrays with bf16 as tagged bits) into a freshly mapped
+        device page (MMU fault-back-in, pre-copy staging)."""
         flat = flat_page_indices([ppage], self.cfg.n_layers,
                                  self.mmu.config.n_pages)
-        scatter_kv_pages(self.pools, flat, data)
+        scatter_kv_pages(self.pools, flat, weights_from_host(data))
 
     # -------------------------------------------------------------- API ----
     def submit(self, prompt: List[int], max_new_tokens: int = 16, *,
                temperature: float = 0.0, top_k: int = 0,
-               top_p: float = 1.0, tid: int = 0) -> int:
+               top_p: float = 1.0, tid: int = 0, priority: int = 0,
+               deadline_s: Optional[float] = None) -> int:
         if prompt and (min(prompt) < 0 or max(prompt) >= self.cfg.vocab_size):
             # an out-of-range id would raise on the CPU and fault the card
             # inside the embedding gather; fail at the door instead
@@ -205,6 +232,7 @@ class ServingEngine:
         self.queue.append(Request(
             rid=rid, prompt=list(prompt), max_new_tokens=max_new_tokens,
             temperature=temperature, top_k=top_k, top_p=top_p, tid=tid,
+            priority=priority, deadline_s=deadline_s,
             t_submit=time.perf_counter()))
         return rid
 
@@ -220,6 +248,15 @@ class ServingEngine:
         """Wait for the device, so a host clock measures the work."""
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    def _ewma(self, prev: Optional[float], sample: float) -> float:
+        """EWMA update with a 10x clamp against the running estimate so
+        a one-off outlier (a first call's start-up) cannot poison the
+        feasibility math."""
+        if prev is None:
+            return sample
+        a = self._ewma_alpha
+        return (1 - a) * prev + a * min(sample, 10.0 * prev)
 
     def _admit(self) -> None:
         """Admit queued requests into free slots under the page budget,
@@ -313,8 +350,12 @@ class ServingEngine:
                 self._tensor(tables, i32), cfg=self.cfg,
                 page_size=self.page)
             self._sync()
-            self.prefill_s += time.perf_counter() - t0
+            dt = time.perf_counter() - t0
+            self.prefill_s += dt
             self.prefill_computed += n * chunk
+            self.ewma_prefill_s_per_tok = self._ewma(
+                self.ewma_prefill_s_per_tok, dt / (n * chunk))
+            self.prefill_obs += 1
             for _, req in inter:
                 self.mmu.mark_dirty_range(req.rid, req.prefill_pos,
                                           req.prefill_pos + chunk)
@@ -380,6 +421,10 @@ class ServingEngine:
         self.prefill_s += now - t0
         for _, req, _, wfrom in rows:
             self.mmu.mark_dirty_range(req.rid, wfrom, len(req.prompt))
+        self.ewma_prefill_s_per_tok = self._ewma(
+            self.ewma_prefill_s_per_tok,
+            (now - t0) / max(int(q_lens.sum()), 1))
+        self.prefill_obs += 1
         slots_i, srows = [], []
         for j, (i, req, _, _) in enumerate(rows):
             tok = int(first[j])
@@ -395,7 +440,11 @@ class ServingEngine:
                 self.block_table.unbind(i)
                 self.completed.append(req)
                 self.slots[i] = None
+                if self.token_sink is not None:
+                    self.token_sink(req, tok, True)
                 continue
+            if self.token_sink is not None:
+                self.token_sink(req, tok, False)
             slots_i.append(i)
             # write position of the NEXT decode step's token
             srows.append((len(req.prompt), tok, req.temperature,
@@ -430,6 +479,8 @@ class ServingEngine:
             if health is not None:
                 health.beat(self.slot)      # watchdog: slot is decoding
         self._settle_io()
+        if self.admission_hook is not None:
+            self.admission_hook(self)
         self._admit()
         self._prefill_chunks()
         # decode runs over BOUND rows only: chunk-prefilling rows hold a
@@ -464,7 +515,10 @@ class ServingEngine:
         self.dev_tokens = next_toks
         # the ONLY per-step device->host copy: the (B,) int32 token vector
         toks = next_toks.cpu().numpy()
-        self.decode_step_times.append(time.perf_counter() - t0)
+        dt = time.perf_counter() - t0
+        self.decode_step_times.append(dt)
+        self.ewma_decode_step_s = self._ewma(self.ewma_decode_step_s, dt)
+        self.decode_obs += 1
         self.steps += 1
         self._submit_step_io(n_live=len(live))
 
@@ -486,6 +540,8 @@ class ServingEngine:
                 self.completed.append(req)
                 self.slots[i] = None
                 freed.append(i)
+            if self.token_sink is not None:
+                self.token_sink(req, tok, req.done)
         if freed:
             self._sync_slot_state(freed, [(0, 0, 0.0, 0, 1.0, 0)] * len(freed))
         self.tokens_out += emitted
@@ -553,6 +609,238 @@ class ServingEngine:
                             slot=self.slot, tenant=self.tenant,
                             retryable=True)
         return False
+
+    # ------------------------------------------- migration state (v2) ------
+    @staticmethod
+    def _req_to_dict(req: Request) -> Dict:
+        return {"rid": req.rid, "prompt": list(req.prompt),
+                "max_new_tokens": req.max_new_tokens,
+                "temperature": float(req.temperature),
+                "top_k": int(req.top_k), "top_p": float(req.top_p),
+                "tid": req.tid, "priority": int(req.priority),
+                "deadline_s": (None if req.deadline_s is None
+                               else float(req.deadline_s)),
+                "out_tokens": list(req.out_tokens),
+                "t_submit": float(req.t_submit),
+                "t_first_token": float(req.t_first_token)}
+
+    @staticmethod
+    def _req_from_dict(d: Dict) -> Request:
+        dl = d.get("deadline_s")
+        return Request(rid=int(d["rid"]), prompt=list(d["prompt"]),
+                       max_new_tokens=int(d["max_new_tokens"]),
+                       temperature=float(d["temperature"]),
+                       top_k=int(d["top_k"]), top_p=float(d["top_p"]),
+                       tid=int(d["tid"]),
+                       priority=int(d.get("priority", 0)),
+                       deadline_s=None if dl is None else float(dl),
+                       out_tokens=list(d["out_tokens"]),
+                       t_submit=float(d["t_submit"]),
+                       t_first_token=float(d["t_first_token"]))
+
+    def geometry(self) -> Dict[str, int]:
+        """The shape contract a migration peer must match byte-for-byte:
+        page geometry and the KV head layout of the pools."""
+        return {"page_size": self.page,
+                "n_layers": self.cfg.n_layers,
+                "n_kv_heads": self.cfg.n_kv_heads,
+                "head_dim": self.cfg.resolved_head_dim,
+                "vocab_size": self.cfg.vocab_size}
+
+    def snapshot_state(self, *, only_pages=None) -> Tuple[Dict, Dict]:
+        """Freeze this engine's paged tenant state for migration.
+
+        ``only_pages`` (a set of MMU share keys — ``("d", ppage)`` /
+        ``("h", hslot)``) restricts the shipped PAYLOADS to that subset:
+        pre-copy migrations pass the final dirty delta.  The header (page
+        tables, requests, queue, seed) is always complete.
+
+        Returns ``(header, arrays)``: a JSON-safe header (in-flight and
+        queued requests, the MMU page-table snapshot, the gather order of
+        the live pages, geometry, the sampling seed) and host arrays (the
+        compact KV gather of every shipped live page, preserved
+        host-evicted payloads; bf16 as tagged int16 bits).  The engine
+        must be quiesced: no concurrent ``step()``.
+        """
+        # rows still mid-chunk-prefill (no sampled token yet) go back to
+        # the queue: the destination re-prefills them, and counter-based
+        # sampling keys make their streams the same either way
+        reqs = [{"slot": i, **self._req_to_dict(r)}
+                for i, r in enumerate(self.slots)
+                if r is not None and r.prefill_pos < 0]
+        demoted = [r for r in self.slots
+                   if r is not None and r.prefill_pos >= 0]
+        mmu_snap = self.mmu.snapshot_seqs([r["rid"] for r in reqs])
+        # dedupe: each physical page (device ppage / host slot) ships
+        # ONCE however many sequences share it — restore_seqs rebuilds
+        # the sharing from the per-seq page tables in ``mmu_snap``
+        pages, host_pages = [], {}
+        seen_pp = set()
+        for sd in mmu_snap["seqs"]:
+            for p in sd["pages"]:
+                if p["on_host"]:
+                    hs = int(p.get("host_slot", -1))
+                    if (only_pages is not None and hs >= 0
+                            and ("h", hs) not in only_pages):
+                        continue
+                    key = (f"h:{hs}" if hs >= 0
+                           else f"u:{sd['seq_id']}:{p['vpage']}")
+                    if key in host_pages:
+                        continue
+                    data = self.mmu.host_page_data(sd["seq_id"],
+                                                   p["vpage"])
+                    if data is not None:
+                        host_pages[key] = weights_to_host(
+                            {"k": data["k"], "v": data["v"]})
+                elif p["ppage"] not in seen_pp:
+                    seen_pp.add(p["ppage"])
+                    if (only_pages is not None
+                            and ("d", p["ppage"]) not in only_pages):
+                        continue
+                    pages.append({"ppage": p["ppage"]})
+        header = {
+            "geometry": self.geometry(),
+            "requests": reqs,
+            "queue": [self._req_to_dict(r)
+                      for r in list(demoted) + list(self.queue)],
+            "mmu": mmu_snap,
+            "pages": pages,          # gather order of kv_k/kv_v rows
+            "seed": int(self.seed),
+        }
+        arrays: Dict = {}
+        if pages:
+            flat = flat_page_indices([p["ppage"] for p in pages],
+                                     self.cfg.n_layers,
+                                     self.mmu.config.n_pages)
+            kv = gather_kv_pages(self.pools, flat)
+            arrays["kv_k"] = weights_to_host(kv["k"])
+            arrays["kv_v"] = weights_to_host(kv["v"])
+        if host_pages:
+            arrays["host_pages"] = host_pages
+        return header, arrays
+
+    def restore_state(self, header: Dict, arrays: Dict, *,
+                      staged=None) -> Dict[str, int]:
+        """Adopt a migrated tenant: fresh page allocation on OUR MMU,
+        block-table rebuild (dirty rows upload on the next view), KV
+        payloads scattered onto this engine's device at the new physical
+        pages, decode state synced, sampling seed adopted (a container
+        without one — the reference's, which carries a JAX PRNG key —
+        keeps ours).  In-flight requests land on their original slot
+        index when free, else the first free slot.
+
+        ``staged`` (pre-copy): ``{source share key: our ppage}`` of pages
+        already filled by warm rounds — forwarded to ``MMU.restore_seqs``
+        so those mappings adopt the staged pages; the delta payloads in
+        ``arrays`` then overwrite exactly the pages that changed after
+        their last warm copy.  (The reference pads the delta scatter to a
+        power-of-two bucket to dodge a retrace; eager PyTorch has none.)"""
+        g = header["geometry"]
+        mine = self.geometry()
+        if g != mine:
+            raise ValueError(
+                f"migration geometry mismatch: snapshot {g} vs "
+                f"destination {mine} — KV pages are not byte-compatible")
+        reqs = header["requests"]
+        free = [i for i in range(self.max_batch)
+                if self.slots[i] is None]
+        if len(reqs) > len(free):
+            raise ValueError(
+                f"destination engine has {len(free)} free slots for "
+                f"{len(reqs)} in-flight migrated requests")
+        mapping = self.mmu.restore_seqs(header["mmu"], slot=self.slot,
+                                        staged=staged)
+        # shared source pages restored to ONE destination page each:
+        # index the new ppage by old device ppage / host slot so every
+        # shipped payload (deduped at snapshot) scatters exactly once
+        by_old, by_hslot, by_sv = {}, {}, {}
+        for sid, pl in mapping.items():
+            for p in pl:
+                if p["was_host"]:
+                    if p["host_slot"] >= 0:
+                        by_hslot[p["host_slot"]] = p["new_ppage"]
+                    by_sv[(sid, p["vpage"])] = p["new_ppage"]
+                else:
+                    by_old[p["old_ppage"]] = p["new_ppage"]
+        L, n_pages = self.cfg.n_layers, self.mmu.config.n_pages
+        if header["pages"]:
+            new_pps = [by_old[p["ppage"]] for p in header["pages"]]
+            scatter_kv_pages(self.pools,
+                             flat_page_indices(new_pps, L, n_pages),
+                             {"k": weights_from_host(arrays["kv_k"]),
+                              "v": weights_from_host(arrays["kv_v"])})
+        for key, data in (arrays.get("host_pages") or {}).items():
+            if key.startswith("h:"):
+                new_pp = by_hslot[int(key[2:])]
+            else:                       # "u:<sid>:<vpage>" legacy pages
+                _, sid, vpage = key.split(":")
+                new_pp = by_sv[(int(sid), int(vpage))]
+            self._pager_scatter(new_pp, data)
+        slots_i, rows = [], []
+        for rd in reqs:
+            req = self._req_from_dict(rd)
+            want = int(rd.get("slot", -1))
+            i = want if (0 <= want < self.max_batch
+                         and self.slots[want] is None) else free[0]
+            free.remove(i)
+            self.slots[i] = req
+            self.block_table.bind(i, req.rid)
+            assert req.out_tokens, "in-flight request without prefill"
+            slots_i.append(i)
+            rows.append((len(req.prompt) + len(req.out_tokens) - 1,
+                         req.out_tokens[-1], req.temperature,
+                         req.top_k, req.top_p, req.rid))
+        if slots_i:
+            self._sync_slot_state(slots_i, rows)
+        for rd in header["queue"]:
+            self.queue.append(self._req_from_dict(rd))
+        if "seed" in header:
+            self.seed = int(header["seed"])
+        adopted = ([r["rid"] for r in reqs]
+                   + [r["rid"] for r in header["queue"]])
+        if adopted:
+            self._rid_next = max(self._rid_next, max(adopted) + 1)
+        return {"requests": len(reqs), "queued": len(header["queue"]),
+                "pages": len(header["pages"])
+                + len(arrays.get("host_pages") or {})}
+
+    def reset_decode_state(self) -> None:
+        """Cold-reset the engine's device-side soft state — the local
+        analogue of restarting the slot's logic after a crash: a fresh
+        block-table view, zeroed lens/tokens/sampling params, dropped
+        billed-IO futures, full TLB flush.  KV pool *contents* are not
+        touched: :meth:`restore_state` scatters the preserved page
+        payloads back in right after, which is what makes a recovery
+        KV-intact instead of a re-prefill."""
+        self.block_table = self.mmu.block_table_device(
+            self.max_batch, self.max_pages, device=self.device)
+        for t in (self.dev_lens, self.dev_tokens, self.dev_temps,
+                  self.dev_topk, self.dev_rids):
+            t.zero_()
+        self.dev_topp.fill_(1.0)
+        self._topk[:] = 0
+        self._topp[:] = 1.0
+        self._io_futs = []
+        self.mmu.tlb.invalidate()
+
+    def evacuate(self) -> Dict[str, int]:
+        """Release the tenant's paged state AFTER a successful snapshot
+        restore elsewhere: free every sequence on our MMU (returning the
+        pages to the shared pool), unbind block-table rows, clear the
+        run queue.  The engine stays usable for new work."""
+        freed, n_seqs = [], 0
+        for i, req in enumerate(self.slots):
+            if req is not None:
+                self.mmu.free_seq(req.rid)
+                self.block_table.unbind(i)
+                self.slots[i] = None
+                freed.append(i)
+                n_seqs += 1
+        if freed:
+            self._sync_slot_state(freed, [(0, 0, 0.0, 0, 1.0, 0)] * len(freed))
+        n_q = len(self.queue)
+        self.queue.clear()
+        return {"seqs": n_seqs, "queued": n_q}
 
     def latency_stats(self) -> Dict[str, float]:
         """TTFT/TPOT percentiles over completed requests (milliseconds)."""

@@ -29,8 +29,9 @@ Contract, and where it differs from the reference:
   * **Sampling** uses counter-based Philox keys from an integer seed
     (``repro_torch.serve.sampler``); ``filters_on`` lets the engine skip
     the top-k/top-p pass without a device -> host read.
-  * ``prefill_paged``/``write_prefill`` need the dense ``forward`` and
-    wait for a later slice.
+  * ``prefill_paged`` runs the dense ``forward`` over a padded batch (the
+    flash-attention kernels on the card) and ``write_prefill`` scatters
+    its KV with the reference's drop rule, the drops going to the sink.
 
 Applicability: attention-family architectures with dense FFNs (MoE
 layers wait for the MoE slice).
@@ -45,7 +46,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels.paged_attention.ops import paged_decode
 from repro_torch.models import attention, layers, mlp
-from repro_torch.models.transformer import _is_moe_layer, lm_logits
+from repro_torch.models.transformer import _is_moe_layer, forward, lm_logits
 from repro_torch.serve.sampler import fold_row_keys, sample_per_row
 
 
@@ -64,6 +65,32 @@ def make_pools(cfg: ModelConfig, n_pages: int, page_size: int, *,
 def _geometry(cfg: ModelConfig, pools):
     sink = pools["k"].shape[0] - 1
     return sink // cfg.n_layers, sink
+
+
+def write_prefill(pools, layer_kv, tables, lens, page_size: int):
+    """Scatter a prefilled sequence batch into the flat pools, in place.
+
+    layer_kv: (ks, vs) each (L, B, S, K, hd); tables (B, maxp) per-layer
+    page ids; lens (B,) prompt lengths.  One scatter per side: tokens
+    at/after a row's len (padding) and positions whose table entry is
+    unmapped go to the sink slot, where the reference drops them.
+    Returns ``pools``."""
+    ks, vs = layer_kv
+    l, b, s, kh, hd = ks.shape
+    dev = pools["k"].device
+    sink = pools["k"].shape[0] - 1
+    n_pages = sink // l
+    tables, lens = tables.to(dev).long(), lens.to(dev).long()
+    pos = torch.arange(s, device=dev)
+    vpage = (pos // page_size).clamp(max=tables.shape[1] - 1)
+    off = (pos % page_size).expand(l, b, s)
+    ppage = tables.gather(1, vpage.expand(b, s))                # (B,S)
+    valid = (pos[None, :] < lens[:, None]) & (ppage >= 0)
+    base = (torch.arange(l, device=dev) * n_pages)[:, None, None]
+    dst = torch.where(valid[None], base + ppage[None], sink)    # (L,B,S)
+    for side, new in (("k", ks), ("v", vs)):
+        pools[side][dst, off] = new.to(dev, pools[side].dtype)
+    return pools
 
 
 def flat_page_indices(ppages, n_layers: int, n_pages: int) -> torch.Tensor:
@@ -235,6 +262,35 @@ def prefill_chunk_paged(params, pools, tokens, q_lens, q_starts, tables, *,
     absolute positions, in place; earlier positions are never written."""
     _prefill_layers(params, pools, tokens, q_lens, q_starts, q_starts,
                     tables, cfg=cfg, page_size=page_size)
+
+
+def prefill_paged(params, pools, tokens, lens, tables, seed: int,
+                  temperatures, top_k=None, top_p=None, seq_ids=None, *,
+                  cfg: ModelConfig, page_size: int,
+                  filters_on: Optional[bool] = None):
+    """Batched prefill: one padded forward for every admitted request.
+
+    tokens (N, S) right-padded prompts; lens (N,) prompt lengths (0 =
+    padding row); tables (N, maxp) block tables for the freshly
+    allocated sequences; temperatures (N,); optional per-request top_k /
+    top_p.  KV lands in ``pools`` in place.  Sampling keys are
+    counter-based on ``(seq_id, prompt length)`` (seq_id 0 without
+    ``seq_ids``).  Returns the first tokens (N,) int32 on the pools'
+    device; padding rows yield tokens the caller ignores."""
+    dev = pools["k"].device
+    tokens, lens = tokens.to(dev).long(), lens.to(dev).long()
+    hidden, _, kv, _ = forward(params, cfg, tokens, collect_kv=True)
+    write_prefill(pools, kv, tables, lens, page_size)
+    last = hidden[torch.arange(tokens.shape[0], device=dev),
+                  (lens - 1).clamp_min(0)]                      # (N, D)
+    logits = lm_logits(params, cfg, last)[..., :cfg.vocab_size]
+    if seq_ids is None:
+        seq_ids = torch.zeros_like(lens)
+    keys = fold_row_keys(seed, seq_ids.to(dev), lens)
+    return sample_per_row(keys, logits, temperatures.to(dev),
+                          None if top_k is None else top_k.to(dev),
+                          None if top_p is None else top_p.to(dev),
+                          filters_on=filters_on)
 
 
 def _decode_logits(params, pools, tables, lens, last_tokens, *,

@@ -224,6 +224,43 @@ def test_engine_on_the_card_matches_the_cpu(card):
     assert got == _serve(cfg, "cpu", modes)
 
 
+def _prefill_paged(cfg, device):
+    """The batched padded prefill of tests/test_torch_decode_hot_path.py
+    on ``device``: a padding row, a sampled row, and a row whose third page
+    is out on the host (its tokens drop to the sink)."""
+    page, n_pages, maxp = 8, 32, 6
+    rs = np.random.RandomState(1)
+    lens = np.asarray([13, 40, 0, 7], np.int32)
+    tokens = rs.randint(0, cfg.vocab_size, size=(4, 40))
+    tables = np.full((4, maxp), -1, np.int32)
+    perm = rs.permutation(n_pages)
+    tables[0, :2], tables[1, :5], tables[3, :1] = (perm[:2], perm[2:7],
+                                                   perm[7:8])
+    tables[1, 2] = -1
+    pools = P.make_pools(cfg, n_pages, page, device=device)
+    first = P.prefill_paged(
+        _params(cfg, device), pools, torch.as_tensor(tokens),
+        torch.as_tensor(lens), torch.as_tensor(tables), 0,
+        torch.tensor([0.0, 0.9, 0.0, 0.0]), cfg=cfg, page_size=page)
+    return first.cpu()[lens > 0], {s: pools[s][:-1].cpu() for s in pools}
+
+
+def test_prefill_paged_on_the_card_matches_the_cpu(card):
+    """``prefill_paged`` (and its ``write_prefill`` scatter) on the card:
+    the pools below the sink within atol 1e-4 of the CPU run's (fp32,
+    flash forward kernel against the plain softmax), first tokens equal,
+    the sampled row included."""
+    cfg = get_config("smollm-135m").reduced()
+    before = fa.LAUNCHES
+    first, pools = _prefill_paged(cfg, card)
+    assert fa.LAUNCHES - before == cfg.n_layers
+    want_first, want_pools = _prefill_paged(cfg, "cpu")
+    assert torch.equal(first, want_first)
+    for side in ("k", "v"):
+        torch.testing.assert_close(pools[side], want_pools[side],
+                                   atol=1e-4, rtol=0)
+
+
 # ----------------------------------------------------------- flash attention
 FA_CASES = [                    # b, h, kh, sq, sk, d, causal, window
     (2, 4, 2, 256, 256, 64, True, 0),     # tests/test_kernels.py FA_CASES
@@ -240,6 +277,7 @@ FA_CASES = [                    # b, h, kh, sq, sk, d, causal, window
     (1, 4, 1, 130, 130, 120, True, 64),   # D 120, window, ragged
     (1, 4, 2, 96, 96, 48, True, 0),       # D 48
     (2, 32, 8, 2048, 2048, 120, True, 0),  # h2o-danube-3-4b's shape
+    (1, 32, 8, 4200, 4200, 120, True, 4096),  # and past its window
 ]
 BWD_CASES = [                   # tests/test_kernels.py BWD_CASES
     (1, 4, 2, 128, 128, 64, True, 0),
@@ -583,3 +621,46 @@ def test_hll_on_the_card_matches_the_cpu(card):
     assert torch.equal(regs.cpu(), H.hll_sketch(items))
     assert float(H.hll_estimate(regs)) == pytest.approx(
         float(H.hll_estimate(regs.cpu())), rel=1e-6)
+
+
+# -------------------------------------------------- migration and recovery
+def _migrate_and_recover(cfg, device):
+    """Reduced smollm fp32 on two shells of ``device``: four requests
+    (one sampled) moved by ``migrate`` after 3 steps, the destination's
+    slot recovered in place after 3 more, then decoded to the end."""
+    from repro_torch.core import Shell, ShellConfig, migrate
+    params = init_params(cfg, generator=torch.Generator().manual_seed(0),
+                         dtype=torch.float32, device=device)
+    shells, engines = [], []
+    for base in (0, 100):
+        sh = Shell(ShellConfig.make(services={"mmu": MMUConfig(
+            page_size=16, n_pages=64)}, n_vfpgas=1), device=device)
+        sh.build()
+        shells.append(sh)
+        engines.append(ServingEngine(
+            cfg, params, sh.services.get("mmu"), max_batch=4, max_len=96,
+            shell=sh, slot=0, tenant="gold", rid_base=base, device=device))
+    for i, n in enumerate((5, 37, 16, 60)):
+        engines[0].submit(list(range(3, 3 + n)), max_new_tokens=12,
+                          temperature=0.9 if i == 2 else 0.0)
+    for _ in range(3):
+        engines[0].step()
+    assert migrate(shells[0], shells[1], "gold").n_requests == 4
+    for _ in range(3):
+        engines[1].step()
+    assert shells[1].recover_slot(0).n_requests == 4
+    while engines[1].pending():
+        engines[1].step()
+    for sh in shells:
+        sh.close()
+    return {r.rid: r.out_tokens for r in engines[1].completed}
+
+
+def test_migrate_and_recover_slot_on_the_card_match_the_cpu(card):
+    """The same moves on the card (every decode on the paged kernel) and
+    on the CPU give the same streams, sampled row included."""
+    cfg = get_config("smollm-135m").reduced()
+    before = pa.LAUNCHES
+    got = _migrate_and_recover(cfg, "cuda")
+    assert pa.LAUNCHES > before
+    assert got == _migrate_and_recover(cfg, "cpu")

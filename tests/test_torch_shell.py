@@ -397,7 +397,8 @@ def test_mlp_equals_reference_on_carried_weights():
 # ============================================ copies and the device rule ==
 _COPIED = ["core/interfaces.py", "core/credits.py", "core/health.py",
            "core/scheduler.py", "core/port.py", "core/bitstream.py",
-           "core/cthread.py", "core/services/sniffer.py"]
+           "core/cthread.py", "core/services/sniffer.py",
+           "serve/gateway.py", "fleet/__init__.py", "fleet/controller.py"]
 _SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
 _IMPORT = re.compile(r"^\s*(from|import)\s")
 

@@ -264,11 +264,16 @@ def test_init_cache_matches_prefill_layout(model):
 
 
 def test_dense_attention_cache_waits_for_its_slice():
+    """The dense attention cache has landed (ROADMAP item 9; its twins
+    are in ``tests/test_torch_serving.py``): ``init_cache`` lays out
+    per-layer KV beside the mamba states, and what still waits for its
+    slice raises."""
     cfg = get_config("smollm-135m").reduced()
-    with pytest.raises(NotImplementedError, match="item 9"):
-        T.init_cache(cfg, 1, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        T.prefill({}, cfg, torch.zeros(1, 4, dtype=torch.long), 8)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        T.decode_step({}, cfg, {}, torch.zeros(1, 1, dtype=torch.long),
-                      torch.zeros(1))
+    c = T.init_cache(cfg, 1, 8, device="cpu")
+    assert set(c) == {"k", "v"} and c["k"].shape[:3] == (cfg.n_layers, 1, 8)
+    with pytest.raises(NotImplementedError, match="item 14"):
+        T.decode_step({}, cfg, c, torch.zeros(1, 1, dtype=torch.long),
+                      torch.zeros(1), cp_mesh=object())
+    with pytest.raises(NotImplementedError, match="item 18"):
+        T.init_cache(get_config("zamba2-2.7b").reduced(), 1, 8,
+                     device="cpu")
