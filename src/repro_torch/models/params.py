@@ -4,16 +4,21 @@
 init_params`` returns, with every leaf already converted to a numpy array
 by the caller, and builds the port's tensors under the same keys in the
 same ``x @ W`` layout: ``embed.table``, ``final_norm``, the stacked
-``layers.{norm1, attn.{wq,wk,wv,wo[,bq,bk,bv]}, norm2,
-ffn.{w_gate,w_up,w_down}}`` or, for a mamba model, ``layers.{norm,
-mamba.{wz,wx,wB,wC,wdt,conv_w,conv_b,dt_bias,A_log,D,norm,wo}}``, and
-``lm_head`` when the embeddings are untied.  No transposes are needed:
-both packages multiply ``x @ W``.
+``layers.{norm1, attn.{wq,wk,wv,wo[,bq,bk,bv]}, norm2, ffn}`` with
+``ffn.{w_gate,w_up,w_down}`` or, for a MoE model, ``ffn.{router, w_gate,
+w_up, w_down[, shared]}`` (experts stacked on an E axis), or, for a
+mamba model, ``layers.{norm, mamba.{wz,wx,wB,wC,wdt,conv_w,conv_b,
+dt_bias,A_log,D,norm,wo}}``, and ``lm_head`` when the embeddings are
+untied.  A hybrid model's tree has ``slots``, a tuple of mamba trees (one
+per non-shared pattern slot, each stacked over the cycles), and
+``shared_attn``, one attention-plus-MLP layer; tuples stay tuples.  No
+transposes are needed: both packages multiply ``x @ W``.
 
-Every leaf is cast to ``dtype`` except the SSM's ``dt_bias``, ``A_log``
-and ``D``, which stay float32 whatever ``dtype`` is, as the reference's
-``mamba_init`` keeps them: rounding ``A_log`` or ``dt_bias`` to bf16
-would move every decay rate of the scan.
+Every leaf is cast to ``dtype`` except ``ssm.FLOAT32_LEAVES``: the SSM's
+``dt_bias``, ``A_log`` and ``D`` and the MoE ``router``, which stay
+float32 whatever ``dtype`` is, as the reference draws them: rounding
+``A_log`` or ``dt_bias`` to bf16 would move every decay rate of the scan,
+and the router's logits are float32 in both packages.
 """
 from __future__ import annotations
 
@@ -34,8 +39,7 @@ def from_reference(tree: Dict[str, Any], *, dtype=torch.float32,
         if isinstance(x, dict):
             return {k: conv(v, k) for k, v in x.items()}
         if isinstance(x, (tuple, list)):
-            raise TypeError("from_reference takes uniform models (hybrid "
-                            "slot tuples wait for the zamba2 slice)")
+            return tuple(conv(v, name) for v in x)
         # via float32: numpy has no bfloat16 of its own
         t = torch.tensor(np.asarray(x, np.float32))
         return t.to(device=device, dtype=torch.float32

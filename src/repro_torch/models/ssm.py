@@ -25,17 +25,21 @@ from repro_torch.kernels.ssd import ops
 from repro_torch.kernels.ssd.ref import ssd_chunked  # noqa: F401 (re-export)
 from repro_torch.models import layers
 
-# leaves that stay float32 whatever the weights' dtype (reference
-# ``mamba_init``)
-FLOAT32_LEAVES = ("dt_bias", "A_log", "D")
+# leaves that stay float32 whatever the weights' dtype: the SSM's decay
+# and skip parameters (reference ``mamba_init``) and the MoE router
+# (reference ``moe_init``); read by ``cast`` and ``params.from_reference``
+FLOAT32_LEAVES = ("dt_bias", "A_log", "D", "router")
 
 
 def cast(tree, device, dtype):
-    """Every leaf to ``dtype`` on ``device``, except ``FLOAT32_LEAVES``."""
+    """Every leaf to ``dtype`` on ``device``, except ``FLOAT32_LEAVES``;
+    tuples (a hybrid model's slots) stay tuples."""
     if isinstance(tree, dict):
         return {k: (v.to(device=device, dtype=torch.float32)
                     if k in FLOAT32_LEAVES else cast(v, device, dtype))
                 for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(cast(v, device, dtype) for v in tree)
     return tree.to(device=device, dtype=dtype)
 
 

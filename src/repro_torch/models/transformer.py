@@ -1,21 +1,27 @@
 """Model assembly: parameter init, the full-sequence forward, the LM head,
 the training loss and the dense-cache serving path.
 
-Twin of ``repro.models.transformer`` for uniform architectures: dense
-attention (``block_pattern == ("attn",)``) and Mamba-2
-(``("mamba",)``).  ``init_params`` builds the reference's key tree with
-the same shapes and init scales (layers stacked on a leading L axis); the
-random numbers come from a ``torch.Generator`` and differ from JAX's.
-``forward`` runs the layers in a Python loop over views of the stacked
-parameters (the reference's ``lax.scan``).  Attention goes through
+Twin of ``repro.models.transformer`` for decoder-only architectures:
+dense attention (``block_pattern == ("attn",)``), with a dense or MoE FFN
+(``models/moe.py``), Mamba-2 (``("mamba",)``) and the zamba2 hybrid (a
+pattern of mamba slots and one ``"shared_attn"`` block, cycled).
+``init_params`` builds the reference's key tree with the same shapes and
+init scales: uniform layers stacked on a leading L axis; a hybrid's
+``slots``, a tuple with one tree per mamba slot stacked over the cycles,
+and ``shared_attn``, one attention-plus-MLP layer whose weights every
+cycle reuses.  The random numbers come from a ``torch.Generator`` and
+differ from JAX's.  ``forward`` runs the layers in a Python loop over
+views of the stacked parameters (the reference's ``lax.scan``) and sums
+the MoE layers' aux losses.  Attention goes through
 ``attention.attend_chunked`` (the flash-attention kernels on the card),
 the mamba blocks' scan through ``kernels/ssd/ops.ssd`` (the SSD kernel on
-the card).  ``init_cache``, ``prefill`` and ``decode_step`` serve both
-families through a dense decode cache: per-layer KV of ``max_len``
+the card).  ``init_cache``, ``prefill`` and ``decode_step`` serve every
+family through a dense decode cache: per-layer KV of ``max_len``
 positions, or for a sliding-window model a ring of the window; a mamba
-model's O(1) conv and SSM states.  ``remat`` other than ``"none"``,
-hybrid, MoE and encoder-decoder models belong to later slices and raise
-here.
+model's O(1) conv and SSM states; a hybrid's mamba states per (cycle,
+slot) and one KV ring of ``decode_cache_len`` (at most 4096) per cycle.
+``remat`` other than ``"none"`` and encoder-decoder models belong to
+later slices and raise here.
 """
 from __future__ import annotations
 
@@ -27,27 +33,30 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import attention, layers, mlp, ssm
+from repro_torch.models import attention, layers, mlp, moe, ssm
 
 
 def _uniform(cfg: ModelConfig) -> bool:
     return len(cfg.block_pattern) == 1
 
 
+def _n_cycles(cfg: ModelConfig) -> int:
+    if cfg.n_layers % len(cfg.block_pattern):
+        raise ValueError(f"{cfg.arch_id}: n_layers {cfg.n_layers} not "
+                         f"divisible by pattern {cfg.block_pattern}")
+    return cfg.n_layers // len(cfg.block_pattern)
+
+
 def _is_moe_layer(cfg: ModelConfig) -> bool:
+    # every layer, whatever ``moe_layer_period`` says: the reference's rule
     return cfg.moe is not None
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if not _uniform(cfg) or cfg.block_pattern[0] not in ("attn", "mamba"):
-        raise NotImplementedError(
-            f"{cfg.arch_id}: hybrid models wait for ROADMAP queue 1 item 18")
-    if _is_moe_layer(cfg):
-        raise NotImplementedError(
-            f"{cfg.arch_id}: MoE layers wait for the MoE/SSM slice")
     if cfg.n_encoder_layers:
         raise NotImplementedError(
-            f"{cfg.arch_id}: encoder-decoder models wait for a later slice")
+            f"{cfg.arch_id}: encoder-decoder models wait for ROADMAP queue 1 "
+            "item 20")
 
 
 def _normal(gen, shape, scale):
@@ -77,7 +86,9 @@ def _attn_layer(gen, cfg: ModelConfig) -> Dict[str, Any]:
         attn.update(bq=torch.zeros(h * hd), bk=torch.zeros(k * hd),
                     bv=torch.zeros(k * hd))
     f = cfg.d_ff
-    if cfg.act == "silu":
+    if _is_moe_layer(cfg):
+        ffn = moe.moe_init(gen, cfg)
+    elif cfg.act == "silu":
         ffn = {"w_gate": _dense(gen, d, f), "w_up": _dense(gen, d, f),
                "w_down": _dense(gen, f, d)}
     else:
@@ -100,22 +111,43 @@ def _mamba_layer(gen, cfg: ModelConfig) -> Dict[str, Any]:
 def init_params(cfg: ModelConfig, *, generator: torch.Generator,
                 dtype=torch.bfloat16, device=None) -> Dict[str, Any]:
     """Parameter tree with the reference ``init_params`` key tree and
-    shapes, layers stacked on a leading axis.  Draws in float32 on the
-    generator's device, then casts to ``dtype`` on ``device`` (the SSM's
-    ``dt_bias``, ``A_log`` and ``D`` stay float32, as in the reference)."""
+    shapes, layers stacked on a leading axis.  Draws each layer in float32
+    on the generator's device and casts it to ``dtype`` on ``device``
+    before stacking, so at most one layer is alive in float32 (the SSM's
+    ``dt_bias``, ``A_log`` and ``D`` and the MoE router stay float32, as
+    in the reference)."""
     device = resolve_device(device)
     _check_supported(cfg)
+
+    def cast(tree):
+        return ssm.cast(tree, device, dtype)
+
     p: Dict[str, Any] = {
-        "embed": {"table": _normal(generator,
-                                   (cfg.padded_vocab, cfg.d_model), 0.02)},
-        "final_norm": _norm(cfg),
+        "embed": {"table": cast(_normal(
+            generator, (cfg.padded_vocab, cfg.d_model), 0.02))},
+        "final_norm": cast(_norm(cfg)),
     }
     if not cfg.tie_embeddings:
-        p["lm_head"] = _dense(generator, cfg.d_model, cfg.padded_vocab)
-    layer = _mamba_layer if cfg.block_pattern[0] == "mamba" else _attn_layer
-    p["layers"] = _stack([layer(generator, cfg)
-                          for _ in range(cfg.n_layers)])
-    return ssm.cast(p, device, dtype)
+        p["lm_head"] = cast(_dense(generator, cfg.d_model, cfg.padded_vocab))
+    if not _uniform(cfg):
+        nc = _n_cycles(cfg)
+        slots = []
+        for kind in cfg.block_pattern:
+            if kind == "shared_attn":
+                p["shared_attn"] = cast(_attn_layer(generator, cfg))
+            else:
+                slots.append(_stack([cast(_mamba_layer(generator, cfg))
+                                     for _ in range(nc)]))
+        p["slots"] = tuple(slots)
+        return p
+    if cfg.block_pattern[0] == "mamba":
+        per = [cast(_mamba_layer(generator, cfg))
+               for _ in range(cfg.n_layers)]
+    else:
+        per = [cast(_attn_layer(generator, cfg))
+               for _ in range(cfg.n_layers)]
+    p["layers"] = _stack(per)
+    return p
 
 
 def lm_logits(params, cfg: ModelConfig, hidden):
@@ -134,10 +166,17 @@ def _unstack(tree, n: int):
     return torch.unbind(tree, 0)
 
 
+def _ffn(p, cfg: ModelConfig, h):
+    """The layer's FFN: (out, aux loss or None)."""
+    if _is_moe_layer(cfg):
+        return moe.moe_apply(p, cfg, h)
+    return mlp.mlp_apply(p, cfg, h), None
+
+
 def _attn_block_fwd(p, cfg: ModelConfig, x, *, causal: bool, q_offset: int,
                     fused: bool = False):
-    """Self-attention + FFN with residuals.  Returns (x, (k, v)), k after
-    RoPE, for prefill cache capture."""
+    """Self-attention + FFN with residuals.  Returns (x, aux or None,
+    (k, v)), k after RoPE, for prefill cache capture."""
     h = layers.norm_apply(p["norm1"], x, cfg.norm_eps)
     q, k, v = attention.qkv_proj(p["attn"], cfg, h)
     if cfg.pos_embed == "rope":
@@ -149,7 +188,8 @@ def _attn_block_fwd(p, cfg: ModelConfig, x, *, causal: bool, q_offset: int,
                                    fused=fused)
     x = x + attention.out_proj(p["attn"], cfg, att)
     h = layers.norm_apply(p["norm2"], x, cfg.norm_eps)
-    return x + mlp.mlp_apply(p["ffn"], cfg, h), (k, v)
+    out, aux = _ffn(p["ffn"], cfg, h)
+    return x + out, aux, (k, v)
 
 
 def _mamba_block_fwd(p, cfg: ModelConfig, x):
@@ -165,10 +205,13 @@ def forward(params, cfg: ModelConfig, tokens, *, remat: str = "none",
 
     Returns (hidden (B,S,D), aux_loss, kv_stack_or_None, (None, None,
     mamba_states_or_None)) as the reference does for a decoder-only model.
-    ``collect_kv``: per-layer (k, v) stacked to (L, B, S, K, hd), or for a
-    mamba model each layer's final {"conv" (L,B,K-1,C), "ssm" (L,B,H,P,N)
-    float32} cache.  ``compute_dtype``: activation dtype (params stay
-    float32 masters, weights cast at use sites); None keeps the param
+    ``aux_loss`` is the sum of the MoE layers' load-balancing losses (0
+    without MoE).  ``collect_kv``: per-layer (k, v) stacked to (L, B, S,
+    K, hd), or for a mamba model each layer's final {"conv" (L,B,K-1,C),
+    "ssm" (L,B,H,P,N) float32} cache; for a hybrid the shared block's
+    (k, v) of each cycle, (NC, B, S, K, hd), and the mamba states stacked
+    to (NC, n_mamba, B, ...).  ``compute_dtype``: activation dtype (params
+    stay float32 masters, weights cast at use sites); None keeps the param
     dtype.
     """
     _check_supported(cfg)
@@ -180,6 +223,10 @@ def forward(params, cfg: ModelConfig, tokens, *, remat: str = "none",
     if compute_dtype is not None:
         x = x.to(compute_dtype)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if not _uniform(cfg):
+        x, kv, ms = _hybrid_fwd(params, cfg, x, collect_kv=collect_kv,
+                                fused=fused_attention)
+        return x, aux, kv, (None, None, ms)
     if cfg.block_pattern[0] == "mamba":
         states = []
         for lp in _unstack(params["layers"], cfg.n_layers):
@@ -187,19 +234,55 @@ def forward(params, cfg: ModelConfig, tokens, *, remat: str = "none",
             if collect_kv:
                 states.append(fc)
         x = layers.norm_apply(params["final_norm"], x, cfg.norm_eps)
-        ms = ({k: torch.stack([st[k] for st in states]) for k in states[0]}
-              if collect_kv else None)
+        ms = _stack_states(states) if collect_kv else None
         return x, aux, None, (None, None, ms)
     ks, vs = [], []
     for lp in _unstack(params["layers"], cfg.n_layers):
-        x, (k, v) = _attn_block_fwd(lp, cfg, x, causal=True, q_offset=0,
-                                    fused=fused_attention)
+        x, la, (k, v) = _attn_block_fwd(lp, cfg, x, causal=True, q_offset=0,
+                                        fused=fused_attention)
+        if la is not None:
+            aux = aux + la
         if collect_kv:
             ks.append(k)
             vs.append(v)
     x = layers.norm_apply(params["final_norm"], x, cfg.norm_eps)
     kv = (torch.stack(ks), torch.stack(vs)) if collect_kv else None
     return x, aux, kv, (None, None, None)
+
+
+def _stack_states(states):
+    return {k: torch.stack([st[k] for st in states]) for k in states[0]}
+
+
+def _hybrid_fwd(params, cfg: ModelConfig, x, *, collect_kv: bool,
+                fused: bool):
+    """The pattern run once per cycle: each mamba slot with its cycle's
+    weights, the shared block with the one shared tree (no window: the
+    reference's forward attends to the whole prefix).  Returns the final
+    hidden states, the cycles' (k, v) and the stacked mamba states (None
+    without ``collect_kv``)."""
+    nc = _n_cycles(cfg)
+    slots = [_unstack(sp, nc) for sp in params["slots"]]
+    ks, vs, states = [], [], []
+    for c in range(nc):
+        si, cycle = 0, []
+        for kind in cfg.block_pattern:
+            if kind == "shared_attn":
+                x, _, (k, v) = _attn_block_fwd(params["shared_attn"], cfg, x,
+                                               causal=True, q_offset=0,
+                                               fused=fused)
+                if collect_kv:
+                    ks.append(k)
+                    vs.append(v)
+            else:
+                x, fc = _mamba_block_fwd(slots[si][c], cfg, x)
+                cycle.append(fc)
+                si += 1
+        if collect_kv:
+            states.append(_stack_states(cycle))
+    x = layers.norm_apply(params["final_norm"], x, cfg.norm_eps)
+    kv = (torch.stack(ks), torch.stack(vs)) if collect_kv and ks else None
+    return x, kv, (_stack_states(states) if collect_kv else None)
 
 
 def xent_loss(params, cfg: ModelConfig, hidden, labels, mask, *,
@@ -266,15 +349,30 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     {"k", "v"} each (L,B,KL,K,hd) in ``dtype``, KL = ``decode_cache_len``
     (a ring of the window for a sliding-window model).  A mamba model:
     {"mamba": {"conv" (L,B,K-1,C) in ``dtype``, "ssm" (L,B,H,P,N)
-    float32}}, whose size does not depend on ``max_len``."""
+    float32}}, whose size does not depend on ``max_len``.  A hybrid:
+    {"mamba": {"conv" (NC,n_mamba,B,K-1,C), "ssm" (NC,n_mamba,B,H,P,N)},
+    "k"/"v" (NC,B,KL,K,hd)}, KL at most 4096, one ring per cycle."""
     _check_supported(cfg)
     device = resolve_device(device)
+    if not _uniform(cfg):
+        lead = (_n_cycles(cfg),
+                sum(k != "shared_attn" for k in cfg.block_pattern))
+        one = ssm.mamba_cache_init(cfg, batch, dtype=dtype, device=device)
+        return {"mamba": {k: v.expand(lead + v.shape).clone()
+                          for k, v in one.items()},
+                **_kv_cache(cfg, lead[0], batch, max_len, dtype, device)}
     if cfg.block_pattern[0] == "mamba":
         one = ssm.mamba_cache_init(cfg, batch, dtype=dtype, device=device)
         return {"mamba": {k: v.expand((cfg.n_layers,) + v.shape).clone()
                           for k, v in one.items()}}
-    shape = (cfg.n_layers, batch, decode_cache_len(cfg, max_len),
-             cfg.n_kv_heads, cfg.resolved_head_dim)
+    return _kv_cache(cfg, cfg.n_layers, batch, max_len, dtype, device)
+
+
+def _kv_cache(cfg: ModelConfig, n: int, batch: int, max_len: int, dtype,
+              device) -> Dict:
+    """Zeroed {"k", "v"}, each (n, B, decode_cache_len, K, hd)."""
+    shape = (n, batch, decode_cache_len(cfg, max_len), cfg.n_kv_heads,
+             cfg.resolved_head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
@@ -302,7 +400,7 @@ def _attn_block_decode(p, cfg: ModelConfig, x, kc, vc, pos, *,
         att = attention.attend_decode(q, kc, vc, pos + 1)
     x = x + attention.out_proj(p["attn"], cfg, att)
     h = layers.norm_apply(p["norm2"], x, cfg.norm_eps)
-    return x + mlp.mlp_apply(p["ffn"], cfg, h)
+    return x + _ffn(p["ffn"], cfg, h)[0]
 
 
 def _mamba_block_decode(p, cfg: ModelConfig, x, cache):
@@ -322,7 +420,8 @@ def decode_step(params, cfg: ModelConfig, cache: Dict, tokens, pos, *,
                 uniform_pos: bool = False, cp_mesh=None):
     """One decode step.  tokens (B,1) integer; pos (B,) current positions
     (unused by a mamba model).  ``uniform_pos``: every row writes at
-    ``pos[0]`` (static-batch decode).
+    ``pos[0]`` (static-batch decode; a hybrid's ring ignores it, as the
+    reference's does).
 
     Returns (logits (B,V) float32, cache).  The cache is updated in place
     and returned: the port's form of the reference's donated cache."""
@@ -332,22 +431,46 @@ def decode_step(params, cfg: ModelConfig, cache: Dict, tokens, pos, *,
             "context-parallel decode (cp_mesh) waits for the tensor-parallel "
             "slice, ROADMAP queue 1 item 14")
     x = _embed_tokens_decode(params, cfg, tokens, pos)
-    per_layer = _unstack(params["layers"], cfg.n_layers)
-    if cfg.block_pattern[0] == "mamba":
+    if not _uniform(cfg):
+        x = _hybrid_decode(params, cfg, cache, x,
+                           torch.as_tensor(pos, device=x.device).long())
+    elif cfg.block_pattern[0] == "mamba":
         mc = cache["mamba"]
-        for i, lp in enumerate(per_layer):
+        for i, lp in enumerate(_unstack(params["layers"], cfg.n_layers)):
             x, new = _mamba_block_decode(
                 lp, cfg, x, {"conv": mc["conv"][i], "ssm": mc["ssm"][i]})
             mc["conv"][i].copy_(new["conv"])
             mc["ssm"][i].copy_(new["ssm"])
     else:
         pos = torch.as_tensor(pos, device=x.device).long()
-        for i, lp in enumerate(per_layer):
+        for i, lp in enumerate(_unstack(params["layers"], cfg.n_layers)):
             x = _attn_block_decode(lp, cfg, x, cache["k"][i],
                                    cache["v"][i], pos,
                                    uniform_pos=uniform_pos)
     x = layers.norm_apply(params["final_norm"], x, cfg.norm_eps)
     return lm_logits(params, cfg, x)[:, 0], cache
+
+
+def _hybrid_decode(params, cfg: ModelConfig, cache, x, pos):
+    """One token through every cycle: the mamba slots update their
+    (cycle, slot) states in place, the shared block its cycle's ring."""
+    nc = _n_cycles(cfg)
+    slots = [_unstack(sp, nc) for sp in params["slots"]]
+    mc = cache["mamba"]
+    for c in range(nc):
+        si = 0
+        for kind in cfg.block_pattern:
+            if kind == "shared_attn":
+                x = _attn_block_decode(params["shared_attn"], cfg, x,
+                                       cache["k"][c], cache["v"][c], pos)
+            else:
+                x, new = _mamba_block_decode(
+                    slots[si][c], cfg, x,
+                    {"conv": mc["conv"][c, si], "ssm": mc["ssm"][c, si]})
+                mc["conv"][c, si].copy_(new["conv"])
+                mc["ssm"][c, si].copy_(new["ssm"])
+                si += 1
+    return x
 
 
 def _fill(kc, knew):
@@ -371,17 +494,18 @@ def prefill(params, cfg: ModelConfig, tokens, max_len: int, *,
     """Run the full prompt, build the decode cache, return last-token
     logits.  tokens (B, S).  Returns (logits (B,V) float32, cache) laid
     out as ``init_cache`` lays it out: KV in ``cache_dtype`` sized for
-    ``max_len`` (or the window), or the mamba conv states in
-    ``cache_dtype`` and SSM states float32."""
+    ``max_len`` (or the window; a hybrid's ring of at most 4096), the
+    mamba conv states in ``cache_dtype`` and SSM states float32."""
     _check_supported(cfg)
     hidden, _, kv, (_, _, states) = forward(params, cfg, tokens,
                                             collect_kv=True)
+    cache = {}
     if states is not None:
-        cache = {"mamba": {"conv": states["conv"].to(cache_dtype),
-                           "ssm": states["ssm"].float()}}
-    else:
-        cache = init_cache(cfg, tokens.shape[0], max_len, dtype=cache_dtype,
-                           device=hidden.device)
+        cache["mamba"] = {"conv": states["conv"].to(cache_dtype),
+                          "ssm": states["ssm"].float()}
+    if kv is not None:
+        cache.update(_kv_cache(cfg, kv[0].shape[0], tokens.shape[0],
+                               max_len, cache_dtype, hidden.device))
         _fill(cache["k"], kv[0])
         _fill(cache["v"], kv[1])
     return lm_logits(params, cfg, hidden[:, -1:])[:, 0], cache

@@ -864,6 +864,12 @@ class ServingEngine:
         t0 = time.perf_counter()
         while self.pending() and self.steps < max_steps:
             self.step()
+            # decode-step preemption checkpoint: when this loop is the
+            # body of a long-running port invocation on a lane, yield to
+            # higher-priority granted work between steps (no-op off-lane)
+            if self.shell is not None:
+                self.shell.scheduler.checkpoint(self.slot)
+        drained = self.flush_io()
         dt = time.perf_counter() - t0
         stats = {"wall_s": dt, "engine_steps": self.steps,
                  "tokens": self.tokens_out,
@@ -872,4 +878,8 @@ class ServingEngine:
                  "prefill_computed": self.prefill_computed,
                  "prefill_skipped": self.prefill_skipped}
         stats.update(self.latency_stats())
+        if self.shell is not None and self.tenant is not None:
+            stats["io_drained"] = drained
+            stats["io_pending"] = self.shell.scheduler.tenant_pending(
+                self.tenant)
         return stats

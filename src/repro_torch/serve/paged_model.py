@@ -33,8 +33,7 @@ Contract, and where it differs from the reference:
     flash-attention kernels on the card) and ``write_prefill`` scatters
     its KV with the reference's drop rule, the drops going to the sink.
 
-Applicability: attention-family architectures with dense FFNs (MoE
-layers wait for the MoE slice).
+Applicability: attention-family architectures, with dense or MoE FFNs.
 """
 from __future__ import annotations
 
@@ -45,8 +44,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels.paged_attention.ops import paged_decode
-from repro_torch.models import attention, layers, mlp
-from repro_torch.models.transformer import _is_moe_layer, forward, lm_logits
+from repro_torch.models import attention, layers, transformer
+from repro_torch.models.transformer import forward, lm_logits
 from repro_torch.serve.sampler import fold_row_keys, sample_per_row
 
 
@@ -138,10 +137,11 @@ def _layer_params(params, li: int):
 
 
 def _ffn(lp, cfg: ModelConfig, h):
-    if _is_moe_layer(cfg):
-        raise NotImplementedError(
-            f"{cfg.arch_id}: MoE layers wait for the MoE/SSM slice")
-    return mlp.mlp_apply(lp["ffn"], cfg, h)
+    """The layer's FFN on the whole (N, T, D) batch.  A MoE layer routes
+    every row, padding and inactive rows included, as the reference
+    does: they share the group's expert capacity, so the port drops the
+    (token, expert) pairs the reference drops."""
+    return transformer._ffn(lp["ffn"], cfg, h)[0]
 
 
 def _prefill_layers(params, pools, tokens, q_lens, q_starts, write_from,

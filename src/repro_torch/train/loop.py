@@ -95,6 +95,10 @@ class Trainer:
         if tcfg.microbatches != 1:
             raise NotImplementedError(
                 "TrainConfig.microbatches > 1 waits for a later slice")
+        if len(cfg.block_pattern) != 1:
+            raise NotImplementedError(
+                f"{cfg.arch_id}: training a hybrid model waits for ROADMAP "
+                "queue 1 item 19")
         self.cfg = cfg
         self.shape = shape
         self.tcfg = tcfg

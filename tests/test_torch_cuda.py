@@ -664,3 +664,89 @@ def test_migrate_and_recover_slot_on_the_card_match_the_cpu(card):
     got = _migrate_and_recover(cfg, "cuda")
     assert pa.LAUNCHES > before
     assert got == _migrate_and_recover(cfg, "cpu")
+
+
+# ------------------------------------------------ MoE and hybrid, on card
+def test_moe_apply_on_the_card_matches_the_cpu(card):
+    """One granite-width MoE layer (d_model 1024, 32 experts, top-8), fp32,
+    on 512 tokens: the routing's expert sets equal the CPU's but for
+    near-ties at the k-th place; given the card's routing, dispatch, the
+    expert products and the combine on the card give the CPU's output
+    within atol 1e-4; the aux loss within 1e-6."""
+    from repro_torch.models import moe
+    cfg = get_config("granite-moe-1b-a400m")
+    p = moe.moe_init(torch.Generator().manual_seed(0), cfg)
+    x = torch.tensor(np.random.RandomState(1).randn(4, 128, 1024)
+                     .astype(np.float32))
+    k, n_e = cfg.moe.top_k, cfg.moe.n_experts
+    outs = {}
+    for name, dev in (("cpu", "cpu"), ("card", card)):
+        pd = {n: v.to(dev) for n, v in p.items()}
+        outs[name] = moe.route(pd, cfg, x.reshape(-1, 1024).to(dev))
+    (_, ci, ca), (gg, gi, ga) = outs["cpu"], outs["card"]
+    probs = torch.softmax(x.reshape(-1, 1024) @ p["router"], -1)
+    top = probs.topk(k + 1, dim=-1).values
+    near = (top[:, k - 1] - top[:, k]).abs() <= 1e-5
+    same = (ci.sort(-1).values == gi.cpu().sort(-1).values).all(-1)
+    assert bool((same | near).all())
+    assert abs(float(ca) - float(ga)) <= 1e-6
+    cap = moe._capacity(512, k, n_e, cfg.moe.capacity_factor)
+    res = {}
+    for name, dev in (("cpu", "cpu"), ("card", card)):
+        pd = {n: v.to(dev) for n, v in p.items()}
+        buf, dest, g = moe.dispatch(x.reshape(1, 512, 1024).to(dev),
+                                    gg.reshape(1, 512, k).to(dev),
+                                    gi.reshape(1, 512, k).to(dev), n_e, cap)
+        eout = moe.experts(pd, buf[:, :-1].reshape(1, n_e, cap, 1024))
+        res[name] = (dest.cpu(), moe.combine(eout, dest, g).cpu())
+    assert torch.equal(res["cpu"][0], res["card"][0])
+    torch.testing.assert_close(res["card"][1], res["cpu"][1], atol=1e-4,
+                               rtol=0)
+
+
+def test_granite_engine_on_the_card_matches_the_cpu(card):
+    """Reduced granite-moe-1b-a400m, fp32, through the engine: greedy
+    streams equal on the card (paged kernel) and on the CPU."""
+    cfg = get_config("granite-moe-1b-a400m").reduced()
+    modes = [{}] * 5
+    before = pa.LAUNCHES
+    got = _serve(cfg, card, modes)
+    assert pa.LAUNCHES > before
+    assert got == _serve(cfg, "cpu", modes)
+
+
+def test_zamba2_prefill_on_the_card_launches_and_matches_the_cpu(card):
+    """Reduced zamba2, fp32: one prefill runs the SSD kernel once per
+    mamba slot and cycle (10) and the flash forward once per cycle (2);
+    decode launches neither; logits and caches of the prefill and 6
+    teacher-forced decode steps equal the CPU's within atol 1e-4."""
+    cfg = get_config("zamba2-2.7b").reduced()
+    params = _params(cfg, "cpu")
+    toks = torch.tensor(np.random.RandomState(7).randint(
+        0, cfg.vocab_size, size=(2, 46)))
+    runs = {}
+    for name, dev in (("cpu", "cpu"), ("card", card)):
+        p = T.ssm.cast(params, dev, torch.float32)
+        s0, f0 = ssd_k.LAUNCHES, fa.LAUNCHES
+        logits, cache = T.prefill(p, cfg, toks[:, :40].to(dev), 46,
+                                  cache_dtype=torch.float32)
+        if name == "card":
+            assert (ssd_k.LAUNCHES - s0, fa.LAUNCHES - f0) == (10, 2)
+        out = [logits.cpu()]
+        s0, f0 = ssd_k.LAUNCHES, fa.LAUNCHES
+        for t in range(40, 46):
+            logits, cache = T.decode_step(p, cfg, cache,
+                                          toks[:, t:t + 1].to(dev),
+                                          torch.full((2,), t, device=dev))
+            out.append(logits.cpu())
+        assert (ssd_k.LAUNCHES - s0, fa.LAUNCHES - f0) == (0, 0)
+        runs[name] = (out, cache)
+    for a, g in zip(runs["cpu"][0], runs["card"][0]):
+        torch.testing.assert_close(g, a, atol=1e-4, rtol=0)
+        assert torch.equal(g[:, :cfg.vocab_size].argmax(-1),
+                           a[:, :cfg.vocab_size].argmax(-1))
+    (_, cc), (_, gc) = runs["cpu"], runs["card"]
+    for got, want in ((gc["k"], cc["k"]), (gc["v"], cc["v"]),
+                      (gc["mamba"]["conv"], cc["mamba"]["conv"]),
+                      (gc["mamba"]["ssm"], cc["mamba"]["ssm"])):
+        torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=0)

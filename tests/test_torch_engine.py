@@ -249,3 +249,96 @@ def test_one_engine_per_mmu(served):
     ServingEngine(cfg, params, mmu, device="cpu")
     with pytest.raises(RuntimeError, match="pager"):
         ServingEngine(cfg, params, mmu, device="cpu")
+
+
+# ================================================= shell-bound run() ======
+def _shell_bound_run(served, port):
+    """A shell-bound engine (slot 0, tenant "gold") driven by ``run()``,
+    with the scheduler's ``checkpoint`` and the engine's ``step`` counted."""
+    jcfg, jparams, cfg, params = served
+    if port:
+        from repro_torch.core import Shell, ShellConfig
+        from repro_torch.core.services import MMUConfig as SMMUConfig
+        shell = Shell(ShellConfig.make(
+            services={"mmu": SMMUConfig(page_size=8, n_pages=64)},
+            n_vfpgas=1), device="cpu")
+    else:
+        from repro.core import Shell, ShellConfig
+        from repro.core.services import MMUConfig as SMMUConfig
+        shell = Shell(ShellConfig.make(
+            services={"mmu": SMMUConfig(page_size=8, n_pages=64)},
+            n_vfpgas=1))
+    shell.build()
+    kw = dict(max_batch=2, max_len=64, shell=shell, slot=0, tenant="gold")
+    eng = (ServingEngine(cfg, params, shell.services.get("mmu"),
+                         device="cpu", **kw) if port
+           else JEngine(jcfg, jparams, shell.services.get("mmu"), **kw))
+    calls, steps = [], []
+    checkpoint, step = shell.scheduler.checkpoint, eng.step
+    shell.scheduler.checkpoint = lambda slot: calls.append(slot) or \
+        checkpoint(slot)
+    eng.step = lambda: steps.append(1) or step()
+    for n in (5, 13, 9):
+        eng.submit(list(range(3, 3 + n)), max_new_tokens=4)
+    try:
+        stats = eng.run()
+    finally:
+        shell.close()
+    return stats, calls, len(steps), eng
+
+
+def test_shell_bound_run_checkpoints_flushes_and_reports_io(served):
+    """``run()`` on a shell-bound engine calls ``scheduler.checkpoint(slot)``
+    after every step, flushes the billed decode I/O at the end and reports
+    ``io_drained`` and ``io_pending``, with the reference's stats keys."""
+    ref, ref_calls, ref_steps, _ = _shell_bound_run(served, False)
+    stats, calls, n_steps, eng = _shell_bound_run(served, True)
+    assert calls == [eng.slot] * n_steps and n_steps >= eng.steps > 0
+    assert ref_calls == [0] * ref_steps
+    assert stats["io_drained"] is True and stats["io_pending"] == 0
+    assert eng.io_bytes > 0 and not eng._io_futs
+    assert set(stats) == set(ref)
+    assert {"io_drained", "io_pending"} <= set(stats)
+
+
+# ======================================================== MoE serving ======
+@pytest.fixture(scope="module")
+def granite():
+    jcfg = jget("granite-moe-1b-a400m").reduced()
+    jparams = JT.init_params(jax.random.PRNGKey(2), jcfg, dtype=jnp.float32)
+    params = from_reference(jax.tree.map(np.asarray, jparams), device="cpu")
+    return jcfg, jparams, get_config("granite-moe-1b-a400m").reduced(), \
+        params
+
+
+def test_granite_moe_streams_match_reference(granite):
+    """Reduced granite-moe-1b-a400m (4 experts, top-2) through both
+    engines: identical greedy streams under slot churn and chunked
+    prefill, with prefix sharing."""
+    rs = np.random.RandomState(8)
+    prefix = rs.randint(0, 512, 16).tolist()
+    prompts = [prefix + rs.randint(0, 512, n).tolist() for n in (3, 14)]
+    prompts += [rs.randint(0, 512, n).tolist() for n in (30, 7)]
+    _both(granite, prompts, mmu_kw=dict(page_size=8, n_pages=128),
+          max_batch=2, max_len=96, prefill_chunk=16, new_tokens=6)
+
+
+def test_granite_moe_streams_ignore_schedule(granite):
+    """The reduced config's capacity factor of 8 never drops, so a
+    request's greedy and sampled tokens do not depend on its batch-mates,
+    the batch size or the chunk size (at full width they may: the
+    capacity is per group of the whole batch, as in the reference)."""
+    rs = np.random.RandomState(9)
+    prompts = [rs.randint(0, 512, n).tolist() for n in (21, 6, 33, 12)]
+    kw = dict(mmu_kw=dict(page_size=8, n_pages=128), modes=SAMPLED,
+              new_tokens=5, max_len=96)
+    base, _ = _run(granite, True, prompts, max_batch=4, **kw)
+    for batch, chunk in ((1, None), (3, 8)):
+        got, _ = _run(granite, True, prompts, max_batch=batch,
+                      prefill_chunk=chunk, **kw)
+        assert got == base
+    # rid 1 (the sampling key's seq id) alone: the same sampled tokens
+    alone, _ = _run(granite, True, prompts[:1], modes=SAMPLED[:1],
+                    max_batch=1, mmu_kw=kw["mmu_kw"], new_tokens=5,
+                    max_len=96)
+    assert alone[1] == base[1]

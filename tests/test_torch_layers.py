@@ -199,7 +199,7 @@ def test_init_params_is_seeded():
 
 def test_init_params_refuses_later_slices():
     gen = torch.Generator().manual_seed(0)
-    for arch in ("granite-moe-1b-a400m", "zamba2-2.7b", "whisper-medium"):
+    for arch in ("whisper-medium",):
         with pytest.raises(NotImplementedError):
             transformer.init_params(get_config(arch).reduced(),
                                     generator=gen, device="cpu")

@@ -135,8 +135,7 @@ def test_xent_loss_chunking_matches_reference(s_len):
     assert tn.item() == float(jn)
 
 
-@pytest.mark.parametrize("arch", ["zamba2-2.7b", "granite-moe-1b-a400m",
-                                  "whisper-medium"])
+@pytest.mark.parametrize("arch", ["whisper-medium"])
 def test_forward_raises_for_models_of_later_slices(arch):
     cfg = get_config(arch).reduced()
     with pytest.raises(NotImplementedError):
@@ -412,6 +411,13 @@ def test_trainer_levers_of_later_slices_raise(tiny, tmp_path, change):
     with pytest.raises(NotImplementedError):
         Trainer(cfg, shape, TrainConfig(ckpt_dir=str(tmp_path), **change),
                 device="cpu")
+
+
+def test_trainer_refuses_the_hybrid_until_its_slice(tmp_path):
+    cfg = get_config("zamba2-2.7b").reduced()
+    with pytest.raises(NotImplementedError, match="item 19"):
+        Trainer(cfg, ShapeConfig("t", "train", 32, 2),
+                TrainConfig(ckpt_dir=str(tmp_path)), device="cpu")
 
 
 def test_launcher_trains_on_the_cpu(tmp_path, capsys):
