@@ -14,10 +14,14 @@ with its five apps and smollm-135m served from a vFPGA slot, training steps thro
 mamba2-1.3b, live migration, in-place recovery, the serving gateway and
 the fleet controller on smollm-135m, the dense attention cache of
 h2o-danube-3-4b and smollm-135m, MoE serving of granite-moe-1b-a400m and
-of llama4-scout-17b-a16e (depth cut to 4 layers) and the zamba2-2.7b
-hybrid; checks the card against the CPU on the reduced models, times
-the kernels and profiles a decode step, a training step, a mamba prefill
-and a mamba decode step.  Phases, in order:
+of llama4-scout-17b-a16e (depth cut to 4 layers), the zamba2-2.7b
+hybrid, and whisper-medium's encoder-decoder, served and trained; checks
+the card against the CPU on the reduced models, times the kernels and
+profiles a decode step, a training step, a mamba prefill and a mamba
+decode step.  Every profiler trace opens with PROFILE_PAD_KERNELS empty
+spin kernels, which the tracer may drop, and drops them from its sums;
+each is held to the count of a kernel it must contain and retaken up to
+three times (``padded_trace``).  Phases, in order:
 
   1. device: require CUDA; print the card's name and power limit;
   2. build: compile every kernel, print the build seconds and each kernel's
@@ -30,8 +34,11 @@ and a mamba decode step.  Phases, in order:
      kernels (bf16 on the tensor cores, float32 on FMA) on the
      reference's test cases, head dims 32, 64, 80, 120 and 128,
      h2o-danube's with and without its window, the training shape,
-     phase 13's dense prefills and zamba2's shared block, and
-     ``mha_fused``'s gradient against autograd of the plain forward; the
+     phase 13's dense prefills, zamba2's shared block and whisper's
+     shapes (the encoder's 1500 x 1500 and the cross-attention's 448 and
+     32 x 1500, non-causal, the decoder's 448 causal, a small ragged one),
+     and ``mha_fused``'s gradient against autograd of the plain forward,
+     also at whisper's cross shape; the
      SSD scan (bf16 on the tensor cores, float32 on FMA) on the
      reference's cases, the reduced and the main mamba shapes, a ragged S,
      an initial state and zamba2's shape;
@@ -91,17 +98,31 @@ and a mamba decode step.  Phases, in order:
      tensor-core, and 9 ``fa_fwd_wgmma_kernel`` launches each), 32 greedy
      ``decode_step``s each (no kernel of the port); fp32 decode after a
      1000-token prefill against the prefill of 1001 tokens;
+ 16. whisper-medium at full width, bf16 (seeded random weights and
+     frames): 5 ``prefill`` calls of 8 rows x 32 tokens over 1500 frames
+     (72 ``fa_fwd_wgmma_kernel`` launches each: 24 encoder, 24 self, 24
+     cross; the cross KV cache (24, 8, 1500, 16, 64)), 64 greedy
+     ``decode_step``s (no kernel of the port), a traced prefill and 16
+     traced decode steps; fp32 decode after a 200-token prefill against
+     the 201-token prefill; 10 ``Trainer`` steps at sequence 448, batch 8
+     (forward, dq and dkv each 72 a step, all tensor-core), 3 traced, and
+     3 with ``remat="full"`` (each decoder layer's forward again in the
+     backward);
   6. card vs CPU on the reduced models, fp32: decode_step_paged of smollm
      and granite, 3 ``Trainer`` steps from the same weights (its forward,
-     dq and dkv launches all on the float32 FMA kernels), mamba2 and zamba2
-     prefill and 8 decode steps;
+     dq and dkv launches all on the float32 FMA kernels) of smollm, of
+     whisper, and of smollm with ``remat`` "full", with "dots" and with
+     int8 gradient compression; mamba2, zamba2 and whisper prefill and 8
+     decode steps;
   7. kernel timing at the main paths' shapes (median, p10 and p90), with
      each kernel's bound and a PyTorch library call as yardstick where one
      computes the same function (for flash attention also SDPA's backward
      alone); for paged attention also the h2o-danube decode shape, the
      profiler's device time per call, the wrapper's host time per call and
      a sweep of the split length and the ring depth; the flash forward
-     (with SDPA) and the SSD at zamba2's prefill shapes;
+     (with SDPA) and the SSD at zamba2's prefill shapes; the flash forward
+     at whisper's encoder and cross shapes, dq and dkv at the cross shape
+     (with SDPA's forward and backward);
   8. profiles: where a steady decode step (every slot full), a training
      step, a mamba prefill call and a mamba decode step spend their time
      (host wall untraced and traced, device busy time, the device's idle
@@ -109,8 +130,8 @@ and a mamba decode step.  Phases, in order:
 
 Each main path runs with every kernel's launch count set to 0 just before
 it and read just after it; each phase's number is printed at the start of
-its lines (phases 10-14 run after phase 4, phases 9 and 15 after phase
-5).  Any failed phase ends the script with a
+its lines (phases 10-14 run after phase 4, phases 9, 15 and 16 after
+phase 5).  Any failed phase ends the script with a
 non-zero exit and no result line.  The line before the last is a JSON
 object describing each kernel; the last line is ``{"ok": true, "device":
 {...}}``.  Imports nothing of JAX and nothing of the JAX package.
@@ -203,7 +224,8 @@ MAMBA_PROFILE_STEPS = 16
 # 2e-5 cannot go through TF32)
 HBM_BYTES_PER_S = 3.35e12
 SPIN_CYCLES = 500_000        # phase 7: the card's wait for the host's call
-PROFILE_PAD_KERNELS = 4000  # phase 7: events a trace may drop at its start
+PROFILE_PAD_KERNELS = 4000  # phases 7-8: events a trace may drop at its start
+PAD_KERNEL = "spin_kernel"  # the kernel of torch.cuda._sleep: the pad
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 ATOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # flash-attention gradients: float32 atol 5e-4 (the reference's backward
@@ -240,7 +262,8 @@ BWD_CASES = [(1, 4, 2, 128, 128, 64, True, 0),
              (2, 4, 2, 77, 77, 32, True, 0),        # D 32
              (2, 4, 2, 200, 200, 80, True, 0),      # D 80
              (1, 4, 1, 130, 130, 120, True, 64),    # D 120, window
-             (2, 32, 8, 2048, 2048, 120, True, 0)]  # h2o-danube-3-4b
+             (2, 32, 8, 2048, 2048, 120, True, 0),  # h2o-danube-3-4b
+             (2, 4, 2, 37, 203, 64, False, 0)]    # small, ragged, Sq != Sk
 FA_MAIN = (8, 9, 3, 2048, 2048, 64, True, 0)
 TRAIN_STEPS, TRAIN_FAIL_AT, TRAIN_CKPT_EVERY = 20, 12, 5
 TRAIN_PROFILE_STEPS = 5
@@ -304,7 +327,46 @@ MOE_TIE = 1e-5          # k-th and (k+1)-th probabilities this close: a tie
 # phase 3: paged decode at phase 14's shapes (granite through main_engine,
 # 16 rows, maxp 64; llama4, 8 rows, maxp 34)
 GRANITE_SHAPE = (16, 16, 8, 64, 16, 64, 2048)
+# phase 16: whisper-medium at full width (24 encoder and 24 decoder layers,
+# d 1024, 16 heads of 64, 1500 frames, vocab 51865; ~0.76 B parameters,
+# 1.5 GB in bf16, cross KV 1.2 GB at 8 rows; training's float32 masters,
+# gradients and AdamW ~12 GB plus activations: one card, no depth cut).
+# Serving: WHISPER_PREFILL_REPS prefills of 8 rows x 32 prompt tokens
+# (max_len 448, the decoder's context), 64 greedy decode steps, a traced
+# prefill and 16 traced decode steps; fp32 decode after a 200-token
+# prefill against the 201-token prefill.  Training: sequence 448, batch
+# 8, WHISPER_TRAIN_STEPS steps, 3 traced, 3 with remat="full"
+WHISPER_ROWS, WHISPER_PROMPT, WHISPER_MAX_LEN = 8, 32, 448
+WHISPER_PREFILL_REPS, WHISPER_DECODE_STEPS, WHISPER_TRACE_STEPS = 5, 64, 16
+WHISPER_CONSISTENCY_PROMPT = 200
+WHISPER_TRAIN = (8, 448)                  # batch, sequence
+WHISPER_TRAIN_STEPS, WHISPER_PROFILE_STEPS, WHISPER_REMAT_STEPS = 10, 3, 3
 LLAMA4_SHAPE = (LLAMA4_REQUESTS, 40, 8, 128, 16, -(-LLAMA4_LEN // 16), 1024)
+# whisper's flash shapes (16 heads of 64, MHA, 1500 encoder frames), every
+# one that phase 16 gives the kernels, ragged against the 128-row tiles:
+# the encoder's self-attention; training's decoder self-attention (448,
+# causal) and cross-attention (448 against 1500), forward and backward;
+# the serving prefill's self (32, causal) and cross (32 against 1500)
+# attention; and the fp32 consistency check's prefills of 200 and 201
+# tokens, self and cross (batch 2)
+WHISPER_FRAMES = 1500
+WHISPER_ENC_FA = (WHISPER_ROWS, 16, 16, WHISPER_FRAMES, WHISPER_FRAMES, 64,
+                  False, 0)
+WHISPER_CROSS_FA = (WHISPER_TRAIN[0], 16, 16, WHISPER_TRAIN[1],
+                    WHISPER_FRAMES, 64, False, 0)
+WHISPER_SELF_FA = (WHISPER_TRAIN[0], 16, 16, WHISPER_TRAIN[1],
+                   WHISPER_TRAIN[1], 64, True, 0)
+FA_CASES += [WHISPER_ENC_FA, WHISPER_CROSS_FA, WHISPER_SELF_FA,
+             (WHISPER_ROWS, 16, 16, WHISPER_PROMPT, WHISPER_FRAMES, 64,
+              False, 0),
+             (WHISPER_ROWS, 16, 16, WHISPER_PROMPT, WHISPER_PROMPT, 64,
+              True, 0),
+             (2, 4, 2, 37, 203, 64, False, 0)]
+FA_CASES += [(2, 16, 16, n, k, 64, k == n, 0)
+             for n in (WHISPER_CONSISTENCY_PROMPT,
+                       WHISPER_CONSISTENCY_PROMPT + 1)
+             for k in (n, WHISPER_FRAMES)]
+BWD_CASES += [WHISPER_CROSS_FA, WHISPER_SELF_FA, WHISPER_ENC_FA]
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1240,11 +1302,12 @@ def _gateway_arrivals(cfg, eng):
 def _timed_dense(T, params, cfg, toks, n_decode, reps):
     """Median and p90 of ``reps`` prefills of ``toks`` and of ``n_decode``
     greedy decode steps after the last, every kernel waited for; then
-    DENSE_TRACE_STEPS more steps traced with ``torch.profiler``: the
-    device's busy time per step (union of the kernel intervals), its idle
-    share against the untraced and the traced step, kernels per step."""
+    DENSE_TRACE_STEPS more steps in a padded trace (``padded_trace``,
+    holding one softmax a layer a step): the device's busy time per step
+    (union of the kernel intervals), its idle share against the untraced
+    and the traced step, kernels per step."""
     pre, dec = [], []
-    n_all = n_decode + DENSE_TRACE_STEPS
+    n_all = n_decode + 3 * DENSE_TRACE_STEPS       # room for two retakes
     for _ in range(reps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1265,16 +1328,22 @@ def _timed_dense(T, params, cfg, toks, n_decode, reps):
         nxt, cache, logits = step(t)
         torch.cuda.synchronize()
         dec.append(time.perf_counter() - t0)
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        for t in range(n_decode, n_all):
+    at = [n_decode]
+
+    def traced_steps():
+        nonlocal nxt, cache, logits
+        for t in range(at[0], at[0] + DENSE_TRACE_STEPS):
             nxt, cache, logits = step(t)
             torch.cuda.synchronize()
-        traced = (time.perf_counter() - t0) * 1e3 / DENSE_TRACE_STEPS
+        at[0] += DENSE_TRACE_STEPS
+
+    want = cfg.n_layers * DENSE_TRACE_STEPS
+    kernels, wall, n_soft, trace = padded_trace(
+        traced_steps, named(r"(?i)softmax"), want,
+        f"{cfg.arch_id} dense decode softmax kernels")
+    traced = wall / DENSE_TRACE_STEPS
     check(bool(torch.isfinite(logits).all()), "non-finite dense logits")
-    kernels, busy, _ = _profile_summary(prof, DENSE_TRACE_STEPS)
+    kernels, busy, _ = _profile_summary(kernels, DENSE_TRACE_STEPS)
     pre, dec = np.asarray(pre), np.asarray(dec) * 1e3
     return {"prefill_s_p50": float(np.percentile(pre, 50)),
             "prefill_s_p90": float(np.percentile(pre, 90)),
@@ -1286,7 +1355,9 @@ def _timed_dense(T, params, cfg, toks, n_decode, reps):
             "device_busy_ms_per_step": busy,
             "device_idle_share_untraced": 1 - busy / float(np.mean(dec)),
             "device_idle_share_traced": 1 - busy / traced,
-            "kernels_per_step": len(kernels) / DENSE_TRACE_STEPS}
+            "kernels_per_step": len(kernels) / DENSE_TRACE_STEPS,
+            "trace": {"number": trace, "softmax_kernels": n_soft,
+                      "want": want}}
 
 
 def phase_dense_cache(card, cfg, params):
@@ -1882,20 +1953,17 @@ def pa_device_ms(fn, reps, flush):
     opens with PROFILE_PAD_KERNELS empty spin kernels for it to drop, and
     up to three traces are taken until one holds every call; the one that
     holds the most is used, and it must hold at least half."""
-    acts = [torch.profiler.ProfilerActivity.CUDA]
+    def calls():
+        for _ in range(reps):
+            flush.zero_()
+            fn()
+
     best = None
     for attempt in range(1, 4):
-        with torch.profiler.profile(activities=acts) as prof:
-            for _ in range(PROFILE_PAD_KERNELS):
-                torch.cuda._sleep(1)
-            for _ in range(reps):
-                flush.zero_()
-                fn()
-            torch.cuda.synchronize()
+        events, _, _ = _pad_and_trace(
+            calls, [torch.profiler.ProfilerActivity.CUDA])
         per = {n: [] for n in PA_PROFILE_NAMES}
-        for e in prof.events():
-            if e.device_type != torch.autograd.DeviceType.CUDA:
-                continue
+        for e in events or ():
             for n in PA_PROFILE_NAMES:
                 if n in e.name:
                     per[n].append(
@@ -1983,6 +2051,65 @@ def phase_timing(pa, ref, gen, card):
     return res
 
 
+def _pad_and_trace(work, acts):
+    """One ``torch.profiler`` trace of ``work()`` led by the pad:
+    PROFILE_PAD_KERNELS empty spin kernels, waited for, then the work,
+    waited for.  Returns (the device events after the pad's last kernel,
+    in start order, or None when no pad kernel survived the tracer's
+    drop; the wall ms of ``work``; the names of the trace's first three
+    device events)."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(PROFILE_PAD_KERNELS):
+            torch.cuda._sleep(1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        work()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = sorted((e for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    pads = [i for i, e in enumerate(events) if PAD_KERNEL in e.name]
+    first = [e.name[:40] for e in events[:3]]
+    return (events[pads[-1] + 1:] if pads else None), wall, first
+
+
+def padded_trace(work, count, want, what):
+    """``work()`` traced by ``torch.profiler`` (host and device), led by
+    PROFILE_PAD_KERNELS empty spin kernels for the tracer to drop: it drops
+    a trace's first device events, more the longer the process has run
+    (``pa_device_ms``).  The pad and everything before its last kernel are
+    dropped from what is returned, so no spin kernel counts in busy ms,
+    kernels a call or the idle share.  ``count(kernels)`` counts a kernel
+    that the traced work holds ``want`` times; the trace is taken again,
+    up to three times, until a pad kernel survives and the count is
+    ``want`` (the retake runs ``work`` again).  The best trace must hold
+    all ``want``.  Returns (device events after the pad, the traced wall
+    ms of ``work``, the count, the trace's number)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    best = None
+    for attempt in range(1, 4):
+        kernels, wall, first = _pad_and_trace(work, acts)
+        n = -1 if kernels is None else count(kernels)
+        if best is None or n > best[2]:
+            best = (kernels or [], wall, n, attempt, first)
+        if n == want:
+            break
+    kernels, wall, n, attempt, first = best
+    check(n == want, f"{what}: the best of three padded traces (trace "
+          f"{attempt}) holds {n} of {want} (-1: no pad kernel survived; "
+          f"its first events {first})")
+    return kernels, wall, n, attempt
+
+
+def named(pattern):
+    """Counter of the traced device events whose name matches."""
+    rx = re.compile(pattern)
+    return lambda kernels: sum(1 for e in kernels if rx.search(e.name))
+
+
 def _union_ms(intervals):
     busy, end = 0.0, -1.0
     for s, e in sorted(intervals):
@@ -1995,9 +2122,9 @@ def _union_ms(intervals):
     return busy / 1e3
 
 
-def _profile_summary(prof, steps):
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+def _profile_summary(kernels, steps):
+    """Busy ms per step (union of the intervals) and {name: (ms, calls)}
+    of a padded trace's device events."""
     check(bool(kernels), "profile: the trace holds no device kernel")
     busy = _union_ms([(e.time_range.start, e.time_range.end)
                       for e in kernels]) / steps
@@ -2012,15 +2139,18 @@ def _profile_summary(prof, steps):
 def phase_decode_profile(cfg, params, card, model="smollm-135m"):
     """Fills every slot of the main path's engine (serving ``model``),
     steps past admission and prefill, times PROFILE_STEPS decode steps
-    untraced, then traces as many more with ``torch.profiler``.  The device's busy time per step is the
-    union of the traced kernel intervals; its idle share is given against
-    both the untraced and the traced step wall."""
+    untraced, then traces as many more (``padded_trace``, which must hold
+    n_layers x PROFILE_STEPS ``pa_decode_kernel`` launches, as LAUNCHES
+    counts them).  The device's busy time per step is the union of the
+    traced kernel intervals; its idle share is given against both the
+    untraced and the traced step wall."""
+    from repro_torch.kernels.paged_attention import paged_attention as pa
     _, eng = main_engine(cfg, params)
     rs = np.random.RandomState(0)
     for i in range(eng.max_batch):
         prompt = rs.randint(0, cfg.vocab_size,
                             size=int(rs.randint(64, 769))).tolist()
-        eng.submit(prompt, max_new_tokens=8 + 2 * PROFILE_STEPS + 4,
+        eng.submit(prompt, max_new_tokens=8 + 4 * PROFILE_STEPS + 4,
                    **({"temperature": 0.8} if i % 2 else {}))
     for _ in range(8):                       # admission, prefill, warm-up
         eng.step()
@@ -2031,17 +2161,24 @@ def phase_decode_profile(cfg, params, card, model="smollm-135m"):
         t0 = time.perf_counter()
         eng.step()
         walls.append((time.perf_counter() - t0) * 1e3)
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
+    launched = []
+
+    def steps():
+        before = pa.LAUNCHES
         for _ in range(PROFILE_STEPS):
             eng.step()
-        torch.cuda.synchronize()
-        traced = (time.perf_counter() - t0) * 1e3 / PROFILE_STEPS
+        launched.append(pa.LAUNCHES - before)
+
+    want = cfg.n_layers * PROFILE_STEPS
+    kernels, wall, n_pa, trace = padded_trace(
+        steps, named(r"pa_decode_kernel"), want,
+        f"{model} paged decode steps")
+    check(launched[-1] == want, f"profile: {launched[-1]} paged launches "
+          f"in {PROFILE_STEPS} steps, not {want}")
+    traced = wall / PROFILE_STEPS
     check(all(r is not None for r in eng.slots),
           "profile: a request finished inside the measured steps")
-    kernels, busy, by_name = _profile_summary(prof, PROFILE_STEPS)
+    kernels, busy, by_name = _profile_summary(kernels, PROFILE_STEPS)
     total = sum(t for t, _ in by_name.values())
     pa_ms = sum(t for n, (t, _) in by_name.items()
                 if any(k in n for k in PA_PROFILE_NAMES))
@@ -2060,6 +2197,8 @@ def phase_decode_profile(cfg, params, card, model="smollm-135m"):
         "device_idle_share_untraced": 1 - busy / untraced,
         "device_idle_share_traced": 1 - busy / traced,
         "kernels_per_step": len(kernels) / PROFILE_STEPS,
+        "trace": {"number": trace, "pa_decode_kernel": n_pa,
+                  "want": want},
         "paged_attention_ms_per_step": pa_ms / PROFILE_STEPS,
         "paged_attention_share_of_kernel_time": pa_ms / total,
         "top_kernels_ms_per_step": [
@@ -2152,6 +2291,20 @@ def phase_flash_kernels(gen):
         print(f"[3] mha_fused grad H={h} K={kh} vs autograd of the plain "
               f"forward: max_abs_err={err:.3e} atol=1e-3")
         check(err <= 1e-3, f"mha_fused gradient H={h} K={kh}: {err}")
+    # whisper's training cross-attention: non-causal, Sq != Sk, the
+    # backward fed the non-causal forward's lse
+    q, k, v = (t.requires_grad_(True) for t in flash_inputs(
+        WHISPER_CROSS_FA, torch.float32, gen))
+    g1 = torch.autograd.grad((ops.mha_fused(q, k, v, False) ** 2).sum(),
+                             (q, k, v))
+    g2 = torch.autograd.grad(
+        (attention_ref(q, k, v, causal=False)[0] ** 2).sum(), (q, k, v))
+    err = max(float((a - b).abs().max()) for a, b in zip(g1, g2))
+    print(f"[3] mha_fused grad at whisper's cross shape "
+          f"{WHISPER_CROSS_FA[:6]} non-causal vs autograd of the plain "
+          f"forward: max_abs_err={err:.3e} atol=1e-3")
+    check(err <= 1e-3, f"mha_fused gradient at the cross shape: {err}")
+    del q, k, v, g1, g2
     return main_err
 
 
@@ -2275,25 +2428,36 @@ def phase_train(card):
     return launches, tr, step_fn
 
 
-def phase_train_card_vs_cpu():
-    """Reduced smollm, fp32, TF32 off: 3 Trainer steps on each device from
-    the same weights (drawn on the CPU for a seed) and the same data.
-    Params are held to 2 x the summed learning rates plus 1e-6: AdamW's
-    m / sqrt(v) turns a last-bit difference in the sign of a near-zero
-    gradient into an update of +lr instead of -lr."""
+def phase_train_card_vs_cpu(arch="smollm-135m", label="smollm", remat="none",
+                            compress=False):
+    """Reduced ``arch``, fp32, TF32 off: 3 Trainer steps on each device from
+    the same weights (drawn on the CPU for a seed) and the same data (an
+    encoder-decoder's frames included), with ``remat`` and, if
+    ``compress``, int8 gradient compression with error feedback.  Params
+    are held to 2 x the summed learning rates plus 1e-6: AdamW's m /
+    sqrt(v) turns a last-bit difference in the sign of a near-zero
+    gradient into an update of +lr instead of -lr.  The forward launches
+    once per attention a step (an encoder-decoder's encoder, decoder and
+    cross attention), and once more per decoder attention under a remat
+    policy, which recomputes the layer body in the backward; dq and dkv
+    once per attention."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.services.compression import (CompressionConfig,
+                                                       GradCompression)
     from repro_torch.optim import adamw
     from repro_torch.train.loop import TrainConfig, Trainer
 
-    cfg = get_config("smollm-135m").reduced()
+    cfg = get_config(arch).reduced()
     runs = {}
     ckpt = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     try:
         for dev in ("cpu", "cuda"):
+            comp = (GradCompression(CompressionConfig(
+                bits=8, error_feedback=True)) if compress else None)
             t = Trainer(cfg, ShapeConfig("t", "train", 128, 2), TrainConfig(
-                steps=3, log_every=1, ckpt_every=0, seed=4, ckpt_dir=ckpt),
-                device=dev)
+                steps=3, log_every=1, ckpt_every=0, seed=4, ckpt_dir=ckpt,
+                remat=remat, compression=comp), device=dev)
             _zero_counts()
             t.run()
             variants = _variant_counts()
@@ -2303,18 +2467,24 @@ def phase_train_card_vs_cpu():
                          sum(m["lr"] for m in t.metrics_log))
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
-    want = cfg.n_layers * 3                 # float32: the FMA kernels
-    check(variants == {"fwd_wgmma": 0, "fwd_fma": want, "dq_wgmma": 0,
+    dec = cfg.n_layers * (2 if cfg.n_encoder_layers else 1)
+    att = cfg.n_encoder_layers + dec        # attentions a step
+    fwd = 3 * (att + (dec if remat != "none" else 0))
+    want = 3 * att                          # float32: the FMA kernels
+    check(variants == {"fwd_wgmma": 0, "fwd_fma": fwd, "dq_wgmma": 0,
                        "dq_fma": want, "dkv_wgmma": 0, "dkv_fma": want},
-          f"the float32 Trainer's flash launches by kernel are {variants}, "
-          f"not 0 tensor-core and {want} FMA each")
+          f"the float32 {label} Trainer's flash launches by kernel are "
+          f"{variants}, not 0 tensor-core and {fwd} forward, {want} dq and "
+          f"{want} dkv FMA")
     (cl, cp, lr_sum), (gl, gp, _) = runs["cpu"], runs["cuda"]
     loss_err = max(abs(a - b) for a, b in zip(cl, gl))
     p_err = max(float((cp[k] - gp[k]).abs().max()) for k in cp)
     p_tol = 2 * lr_sum + 1e-6
-    print(f"[6] reduced smollm fp32, 3 Trainer steps: loss max_abs_err="
-          f"{loss_err:.3e} atol=1e-4, params max_abs_err={p_err:.3e} "
-          f"atol={p_tol:.3e}; card launches by kernel {variants}")
+    print(f"[6] reduced {label} fp32, 3 Trainer steps (remat={remat}, "
+          f"compression={'int8+ef' if compress else 'off'}): loss "
+          f"max_abs_err={loss_err:.3e} atol=1e-4, params max_abs_err="
+          f"{p_err:.3e} atol={p_tol:.3e}; card launches by kernel "
+          f"{variants}")
     check(loss_err <= 1e-4, f"losses differ: {cl} vs {gl}")
     check(p_err <= p_tol, f"params differ by {p_err}")
 
@@ -2405,55 +2575,66 @@ def phase_flash_timing(gen, card):
     return res
 
 
-def phase_train_profile(tr, step_fn, card):
-    """TRAIN_PROFILE_STEPS training steps of the main path's trainer timed
-    untraced, then as many traced with ``torch.profiler``."""
+def train_trace(tr, step_fn, steps, want, what):
+    """``steps`` more steps of a warm trainer in one padded trace, held to
+    ``want`` bf16 forward launches; returns the trace's readings a step:
+    busy ms, kernels, the flash kernels' ms and the top kernels."""
     from repro_torch.data.pipeline import to_device
     batches = [to_device(tr.corpus.batch(1000 + i), "cuda")
-               for i in range(TRAIN_PROFILE_STEPS)]
+               for i in range(steps)]
 
-    def steps():
+    def run():
         for batch in batches:
             tr.params, tr.opt_state, _ = step_fn(tr.params, tr.opt_state,
                                                  batch)
 
+    kernels, wall, n_fwd, trace = padded_trace(
+        run, named(r"fa_fwd_wgmma_kernel"), want, what)
+    kernels, busy, by_name = _profile_summary(kernels, steps)
+    total = sum(t for t, _ in by_name.values())
+    fa_ms = {key: sum(t for n, (t, _) in by_name.items() if key in n)
+             for key in ("fa_fwd", "fa_dq", "fa_dkv")}
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    traced = wall / steps
+    return {
+        "steps": steps, "step_wall_ms_traced_mean": traced,
+        "device_busy_ms_per_step": busy,
+        "device_idle_share_traced": 1 - busy / traced,
+        "kernels_per_step": len(kernels) / steps,
+        "trace": {"number": trace, "fa_fwd_wgmma_kernel": n_fwd,
+                  "want": want},
+        "flash_ms_per_step": {k: v / steps for k, v in fa_ms.items()},
+        "flash_share_of_kernel_time": sum(fa_ms.values()) / total,
+        "top_kernels_ms_per_step": [
+            {"name": n[:80], "ms": t / steps, "calls": c / steps}
+            for n, (t, c) in top]}
+
+
+def phase_train_profile(tr, step_fn, card):
+    """TRAIN_PROFILE_STEPS training steps of the main path's trainer timed
+    untraced, then as many traced (``train_trace``: 30 bf16 forward
+    launches a step)."""
+    from repro_torch.data.pipeline import to_device
     walls = []                                # the trainer is warm
     torch.cuda.synchronize()
-    for batch in batches:
+    for i in range(TRAIN_PROFILE_STEPS):
+        batch = to_device(tr.corpus.batch(1000 + i), "cuda")
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         tr.params, tr.opt_state, _ = step_fn(tr.params, tr.opt_state, batch)
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        steps()
-        torch.cuda.synchronize()
-        traced = (time.perf_counter() - t0) * 1e3 / TRAIN_PROFILE_STEPS
-    kernels, busy, by_name = _profile_summary(prof, TRAIN_PROFILE_STEPS)
-    total = sum(t for t, _ in by_name.values())
-    fa_ms = {key: sum(t for n, (t, _) in by_name.items() if key in n)
-             for key in ("fa_fwd", "fa_dq", "fa_dkv")}
+    prof = train_trace(tr, step_fn, TRAIN_PROFILE_STEPS,
+                       tr.cfg.n_layers * TRAIN_PROFILE_STEPS,
+                       "training steps")
     untraced = float(np.mean(walls))
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     print("[8] train " + json.dumps({
         "card": card, "model": "smollm-135m (random weights, fp32 masters, "
         "bf16 compute)", "seq_len": FA_MAIN[3], "batch": FA_MAIN[0],
-        "steps": TRAIN_PROFILE_STEPS,
         "step_wall_ms_untraced_mean": untraced,
         "step_wall_ms_untraced_p50": float(np.percentile(walls, 50)),
-        "step_wall_ms_traced_mean": traced,
-        "device_busy_ms_per_step": busy,
-        "device_idle_share_untraced": 1 - busy / untraced,
-        "device_idle_share_traced": 1 - busy / traced,
-        "kernels_per_step": len(kernels) / TRAIN_PROFILE_STEPS,
-        "flash_ms_per_step": {k: v / TRAIN_PROFILE_STEPS
-                              for k, v in fa_ms.items()},
-        "flash_share_of_kernel_time": sum(fa_ms.values()) / total,
-        "top_kernels_ms_per_step": [
-            {"name": n[:80], "ms": t / TRAIN_PROFILE_STEPS,
-             "calls": c / TRAIN_PROFILE_STEPS} for n, (t, c) in top]}))
+        "device_idle_share_untraced":
+            1 - prof["device_busy_ms_per_step"] / untraced, **prof}))
 
 
 # ---------------------------------------------------------------------- SSD
@@ -2654,7 +2835,8 @@ def _cache_leaves(cache, prefix=""):
 
 
 def phase_mamba_card_vs_cpu(arch="mamba2-1.3b", label="mamba2"):
-    """Reduced ``arch`` (mamba2, or the zamba2 hybrid), fp32: prefill and 8
+    """Reduced ``arch`` (mamba2, the zamba2 hybrid or the whisper
+    encoder-decoder, given seeded frames), fp32: prefill and 8
     teacher-forced decode steps from the same weights on the CPU (plain
     scan and attention) and the card (the SSD and flash kernels)."""
     from repro_torch.configs import get_config
@@ -2663,14 +2845,18 @@ def phase_mamba_card_vs_cpu(arch="mamba2-1.3b", label="mamba2"):
     cfg = get_config(arch).reduced()
     params = T.init_params(cfg, generator=torch.Generator().manual_seed(1),
                            dtype=torch.float32, device="cpu")
-    toks = torch.as_tensor(np.random.RandomState(3).randint(
-        0, cfg.vocab_size, size=(3, 53)))
+    rs = np.random.RandomState(3)
+    toks = torch.as_tensor(rs.randint(0, cfg.vocab_size, size=(3, 53)))
+    frames = (torch.as_tensor(rs.randn(3, cfg.encoder_seq_len, cfg.d_model)
+                              .astype(np.float32))
+              if cfg.n_encoder_layers else None)
     s = 45
     runs = {}
     for dev in ("cpu", "cuda"):
         p = ssm.cast(params, dev, torch.float32)
-        logits, cache = T.prefill(p, cfg, toks[:, :s].to(dev), 53,
-                                  cache_dtype=torch.float32)
+        logits, cache = T.prefill(
+            p, cfg, toks[:, :s].to(dev), 53, cache_dtype=torch.float32,
+            encoder_frames=None if frames is None else frames.to(dev))
         out = [logits.cpu()]
         for t in range(s, 53):
             logits, cache = T.decode_step(p, cfg, cache,
@@ -2805,12 +2991,18 @@ def phase_mamba_profile(cfg, params, card, toks=None, tag="mamba",
                         model="mamba2-1.3b"):
     """One full-batch prefill call (``toks``, by default mamba2's 8 x 2048)
     and MAMBA_PROFILE_STEPS steady decode steps after it, each timed
-    untraced and then traced."""
+    untraced and then in a padded trace (``padded_trace``).  The prefill
+    trace must hold one ``ssd_scan_kernel`` per SSD call (one a mamba
+    block); a hybrid's decode trace one softmax per cycle a step (its
+    shared attention block); a mamba model's decode runs no kernel of
+    the port and no softmax, so its trace is held to its pad alone."""
     from repro_torch.models import transformer as T
     toks = (mamba_requests(cfg)[0] if toks is None else toks).cuda()
     b, s = toks.shape
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
+    n_blocks = sum(k != "shared_attn" for k in cfg.block_pattern) * (
+        cfg.n_layers // len(cfg.block_pattern))
+    n_attn = cfg.n_layers // len(cfg.block_pattern) if any(
+        k == "shared_attn" for k in cfg.block_pattern) else 0
 
     def prefill():
         return T.prefill(params, cfg, toks, s + 64)
@@ -2836,16 +3028,25 @@ def phase_mamba_profile(cfg, params, card, toks=None, tag="mamba",
             cache = decode(cache, steps)
         torch.cuda.synchronize()
         untraced = (time.perf_counter() - t0) * 1e3 / steps
-        with torch.profiler.profile(activities=acts) as prof:
-            t0 = time.perf_counter()
+        held = [cache]
+
+        def work():
             if what == "prefill":
-                _, cache = prefill()
+                held[0] = prefill()[1]
             else:
-                cache = decode(cache, steps)
-            torch.cuda.synchronize()
-            traced = (time.perf_counter() - t0) * 1e3 / steps
-        del cache
-        kernels, busy, by_name = _profile_summary(prof, steps)
+                held[0] = decode(held[0], steps)
+
+        if what == "prefill":
+            count, want, label = named(r"ssd_scan_kernel"), n_blocks, \
+                "ssd_scan_kernel"
+        else:
+            count, want, label = named(r"(?i)softmax"), n_attn * steps, \
+                "softmax"
+        kernels, wall, n_known, trace = padded_trace(
+            work, count, want, f"{tag} {what}")
+        traced = wall / steps
+        del cache, held
+        kernels, busy, by_name = _profile_summary(kernels, steps)
         total = sum(t for t, _ in by_name.values())
         ssd_ms = sum(t for n, (t, _) in by_name.items()
                      if re.search(r"ssd_\w*kernel", n))
@@ -2858,11 +3059,422 @@ def phase_mamba_profile(cfg, params, card, toks=None, tag="mamba",
             "device_idle_share_untraced": 1 - busy / untraced,
             "device_idle_share_traced": 1 - busy / traced,
             "kernels_per_call": len(kernels) / steps,
+            "trace": {"number": trace, label: n_known, "want": want},
             "ssd_ms_per_call": ssd_ms / steps,
             "ssd_share_of_kernel_time": ssd_ms / total,
             "top_kernels_ms_per_call": [
                 {"name": n[:80], "ms": t / steps, "calls": c / steps}
                 for n, (t, c) in top]}))
+
+
+# ------------------------------------------------------------ whisper
+def whisper_inputs(cfg, rows, prompt, seed, dtype):
+    """Seeded prompt tokens in [3, vocab_size) and random encoder frames
+    (rows, enc_seq, d_model) on the card: the audio frontend is a stub in
+    both packages, so frames stand in for its output."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    toks = torch.randint(3, cfg.vocab_size, (rows, prompt), generator=gen,
+                         device="cuda")
+    frames = torch.randn(rows, cfg.encoder_seq_len, cfg.d_model,
+                         generator=gen, device="cuda").to(dtype)
+    return toks, frames
+
+
+def phase_whisper_serving(card):
+    """Phase 16, serving: whisper-medium at full width, bf16, through
+    ``transformer.prefill`` (encoder over 1500 frames, then the decoder's
+    self and cross attention) and greedy ``decode_step``s against the
+    cross KV cache.  WHISPER_PREFILL_REPS prefills of WHISPER_ROWS x
+    WHISPER_PROMPT tokens (max_len WHISPER_MAX_LEN), then
+    WHISPER_DECODE_STEPS decode steps; then a padded trace of one prefill
+    and one of WHISPER_TRACE_STEPS decode steps.  Returns the flash
+    kernels' launches in the timed prefills (the forward's only)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.paged_attention import paged_attention as pa
+    from repro_torch.models import transformer as T
+
+    cfg = get_config("whisper-medium")
+    params = T.init_params(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(16), dtype=torch.bfloat16, device="cuda")
+    n_params = sum(v.numel() for v in _leaves(params))
+    enc_params = sum(v.numel() for v in _leaves(params["encoder"]))
+    emb = params["embed"]["table"].numel() + params["lm_head"].numel()
+    toks, frames = whisper_inputs(cfg, WHISPER_ROWS, WHISPER_PROMPT, 17,
+                                  torch.bfloat16)
+    b, s = toks.shape
+    per_call = cfg.n_encoder_layers + 2 * cfg.n_layers
+    T.prefill(params, cfg, toks[:2], WHISPER_MAX_LEN,
+              encoder_frames=frames[:2])              # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    pre = []
+    for _ in range(WHISPER_PREFILL_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = T.prefill(params, cfg, toks, WHISPER_MAX_LEN,
+                                  encoder_frames=frames)
+        torch.cuda.synchronize()
+        pre.append(time.perf_counter() - t0)
+    v, launches = _variant_counts(), _flash_counts()
+    want = per_call * WHISPER_PREFILL_REPS
+    check(fa.LAUNCHES == v["fwd_wgmma"] == want and v["fwd_fma"] == 0,
+          f"whisper prefill's flash launches {fa.LAUNCHES}, by kernel {v}: "
+          f"not {per_call} a call on fa_fwd_wgmma_kernel")
+    check(launches["flash_attention_dq"] == launches[
+        "flash_attention_dkv"] == 0, f"whisper prefill ran a backward "
+          f"kernel: {launches}")
+    check(pa.LAUNCHES == 0 and _ssd_count() == 0,
+          "whisper prefill launched a paged or SSD kernel")
+    xshape = (cfg.n_layers, b, cfg.encoder_seq_len, cfg.n_kv_heads,
+              cfg.resolved_head_dim)
+    check(tuple(cache["xk"].shape) == tuple(cache["xv"].shape) == xshape,
+          f"whisper cross cache {tuple(cache['xk'].shape)}, not {xshape}")
+    check(tuple(cache["k"].shape[2:3]) == (WHISPER_MAX_LEN,),
+          "whisper self-attention cache length")
+    _zero_counts()
+    nxt = logits[:, :cfg.vocab_size].argmax(-1, keepdim=True)
+    gen_toks, step_ms = [nxt], []
+    pos = s
+
+    def step():
+        nonlocal nxt, cache, logits, pos
+        logits, cache = T.decode_step(params, cfg, cache, nxt,
+                                      torch.full((b,), pos, device="cuda"))
+        nxt = logits[:, :cfg.vocab_size].argmax(-1, keepdim=True)
+        pos += 1
+        return nxt
+
+    for _ in range(WHISPER_DECODE_STEPS):
+        t0 = time.perf_counter()
+        gen_toks.append(step())
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    check(_ssd_count() == 0 and pa.LAUNCHES == 0
+          and all(n == 0 for n in _flash_counts().values()),
+          "whisper decode launched a flash, paged or SSD kernel")
+    out = torch.cat(gen_toks, 1).cpu()
+    check(out.shape == (b, WHISPER_DECODE_STEPS + 1), "whisper decode length")
+    check(bool(((out >= 0) & (out < cfg.vocab_size)).all()),
+          "whisper: a token outside the vocabulary")
+    check(bool(torch.isfinite(logits).all()), "whisper: non-finite logits")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    pre, st = np.asarray(pre), np.asarray(step_ms)
+
+    # padded traces: one prefill (72 forward launches), then decode steps
+    # (two softmaxes a layer a step: self and cross attention)
+    del cache
+    held = {}
+
+    def one_prefill():
+        held["out"] = T.prefill(params, cfg, toks, WHISPER_MAX_LEN,
+                                encoder_frames=frames)
+
+    traces = {}
+    kern, wall, n, tr = padded_trace(one_prefill,
+                                     named(r"fa_fwd_wgmma_kernel"), per_call,
+                                     "whisper prefill")
+    traces["prefill"] = (kern, wall, 1, {"fa_fwd_wgmma_kernel": n,
+                                         "want": per_call, "number": tr})
+    logits, cache = held.pop("out")
+    pos = s
+    nxt = logits[:, :cfg.vocab_size].argmax(-1, keepdim=True)
+    for _ in range(2):                            # warm
+        step()
+
+    def steps():
+        for _ in range(WHISPER_TRACE_STEPS):
+            step()
+
+    want_soft = 2 * cfg.n_layers * WHISPER_TRACE_STEPS
+    kern, wall, n, tr = padded_trace(steps, named(r"(?i)softmax"),
+                                     want_soft, "whisper decode")
+    traces["decode"] = (kern, wall, WHISPER_TRACE_STEPS,
+                        {"softmax": n, "want": want_soft, "number": tr})
+    _zero_counts()
+    prof = {}
+    for what, (kern, wall, calls, tinfo) in traces.items():
+        kernels, busy, by_name = _profile_summary(kern, calls)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+        prof[what] = {
+            "calls": calls, "wall_ms_traced": wall / calls,
+            "device_busy_ms": busy,
+            "device_idle_share_traced": 1 - busy / (wall / calls),
+            "kernels_per_call": len(kernels) / calls, "trace": tinfo,
+            "top_kernels_ms_per_call": [
+                {"name": nm[:80], "ms": t / calls, "calls": c / calls}
+                for nm, (t, c) in top]}
+    prof["prefill"]["device_idle_share_untraced"] = \
+        1 - prof["prefill"]["device_busy_ms"] / (float(np.median(pre)) * 1e3)
+    prof["decode"]["device_idle_share_untraced"] = \
+        1 - prof["decode"]["device_busy_ms"] / float(np.mean(st))
+    print("[16] whisper serving " + json.dumps({
+        "card": card, "model": "whisper-medium (random weights, bf16; "
+        "frames random, the frontend a stub)", "params": n_params,
+        "encoder_params": enc_params, "embedding_params": emb,
+        "decoder_params": n_params - enc_params - emb,
+        "rows": b, "prompt_tokens": s, "frames": cfg.encoder_seq_len,
+        "max_len": WHISPER_MAX_LEN,
+        "cross_kv_gb": 2 * cache["xk"].numel() * 2 / 1e9,
+        "prefills": WHISPER_PREFILL_REPS,
+        "prefill_s_p50": float(np.percentile(pre, 50)),
+        "prefill_s_p90": float(np.percentile(pre, 90)),
+        "fwd_wgmma_launches_per_prefill": per_call,
+        "decode_steps": WHISPER_DECODE_STEPS,
+        "decode_step_ms_p50": float(np.percentile(st, 50)),
+        "decode_step_ms_p90": float(np.percentile(st, 90)),
+        "decode_tokens_per_s": b / float(np.percentile(st, 50)) * 1e3,
+        "max_memory_allocated_gb": peak,
+        "first_tokens": out[0, :8].tolist(), "profile": prof}))
+    del params, cache, logits
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_whisper_consistency(card):
+    """Phase 16, full width, fp32 weights and frames: decode_step after a
+    WHISPER_CONSISTENCY_PROMPT-token prefill gives the last logits of the
+    prefill one token longer, on the same frames (atol DENSE_ATOL, as
+    phases 9, 13 and 15)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    cfg = get_config("whisper-medium")
+    params = T.init_params(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(18), dtype=torch.float32, device="cuda")
+    s = WHISPER_CONSISTENCY_PROMPT
+    toks, frames = whisper_inputs(cfg, 2, s + 1, 19, torch.float32)
+    _, cache = T.prefill(params, cfg, toks[:, :s], s + 1,
+                         encoder_frames=frames, cache_dtype=torch.float32)
+    got, _ = T.decode_step(params, cfg, cache, toks[:, s:],
+                           torch.full((2,), s, device="cuda"))
+    del cache
+    want, _ = T.prefill(params, cfg, toks, s + 1, encoder_frames=frames,
+                        cache_dtype=torch.float32)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    print(f"[16] whisper-medium fp32, decode after prefill of {s} tokens vs "
+          f"prefill of {s + 1} (same 1500 frames): logits max_abs_err="
+          f"{err:.3e} atol={DENSE_ATOL} (max |logit| "
+          f"{float(want.abs().max()):.3f}) [{card}]")
+    check(bool(torch.isfinite(got).all()), "whisper: non-finite decode logits")
+    check(err <= DENSE_ATOL, f"whisper decode vs prefill: {err}")
+    del params
+    torch.cuda.empty_cache()
+
+
+def _whisper_trainer(cfg, steps, remat, ckpt):
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.loop import TrainConfig, Trainer
+    b, s = WHISPER_TRAIN
+    return Trainer(cfg, ShapeConfig("chip_smoke_whisper", "train", s, b),
+                   TrainConfig(steps=steps, log_every=1, ckpt_every=0,
+                               ckpt_dir=ckpt, seed=0, remat=remat,
+                               compute_dtype=torch.bfloat16,
+                               param_dtype=torch.float32,
+                               opt=AdamWConfig(warmup_steps=5,
+                                               total_steps=steps)),
+                   device="cuda")
+
+
+def phase_whisper_train(card):
+    """Phase 16, training: ``Trainer`` on whisper-medium at full width
+    (sequence 448, batch 8, frames 8 x 1500, fp32 masters, bf16 compute),
+    WHISPER_TRAIN_STEPS steps; a padded trace of WHISPER_PROFILE_STEPS
+    more; then WHISPER_REMAT_STEPS steps with ``remat="full"`` from the
+    same seed.  Returns the first run's launches by kernel."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.paged_attention import paged_attention as pa
+    cfg = get_config("whisper-medium")
+    per_step = cfg.n_encoder_layers + 2 * cfg.n_layers
+    b, s = WHISPER_TRAIN
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    runs = {}
+    try:
+        for remat, steps in (("none", WHISPER_TRAIN_STEPS),
+                             ("full", WHISPER_REMAT_STEPS)):
+            torch.cuda.empty_cache()
+            tr = _whisper_trainer(cfg, steps, remat, ckpt)
+            step_fn, step_ms = tr.step_fn, []
+
+            def timed(*args, step_fn=step_fn, step_ms=step_ms):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = step_fn(*args)
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                return out
+
+            tr.step_fn = timed
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _zero_counts()
+            tr.run()
+            torch.cuda.synchronize()
+            runs[remat] = {
+                "launches": _flash_counts(), "variants": _variant_counts(),
+                "pa": pa.LAUNCHES, "ssd": _ssd_count(),
+                "losses": [m["loss"] for m in tr.metrics_log],
+                "step_ms": step_ms,
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+            if remat == "none":
+                _zero_counts()
+                runs["profile"] = train_trace(
+                    tr, step_fn, WHISPER_PROFILE_STEPS,
+                    per_step * WHISPER_PROFILE_STEPS,
+                    "whisper training steps")
+                runs["profile"]["device_idle_share_untraced"] = 1 - runs[
+                    "profile"]["device_busy_ms_per_step"] / float(
+                        np.median(step_ms[1:]))
+                _zero_counts()
+            # nothing of this trainer may stay alive into the next run's
+            # peak memory
+            del tr, step_fn, timed
+            gc.collect()
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    base, rem = runs["none"], runs["full"]
+    for key, r in (("none", base), ("full", rem)):
+        n = len(r["step_ms"])
+        check(all(math.isfinite(x) for x in r["losses"]),
+              f"whisper remat={key}: non-finite loss {r['losses']}")
+        check(r["pa"] == 0 and r["ssd"] == 0,
+              f"whisper training (remat={key}) launched a paged or SSD "
+              "kernel")
+        # remat recomputes each decoder layer (self and cross attention)
+        # in the backward; the encoder, as the reference's, keeps its
+        # activations
+        fwd = n * (per_step + (2 * cfg.n_layers if key == "full" else 0))
+        want = n * per_step
+        check(r["variants"] == {"fwd_wgmma": fwd, "fwd_fma": 0,
+                                "dq_wgmma": want, "dq_fma": 0,
+                                "dkv_wgmma": want, "dkv_fma": 0},
+              f"whisper bf16 training (remat={key}, {n} steps): flash "
+              f"launches by kernel {r['variants']}, not {fwd} forward and "
+              f"{want} dq and dkv on the tensor cores")
+    k = WHISPER_REMAT_STEPS
+    loss_err = max(abs(a - b) for a, b in zip(base["losses"][:k],
+                                              rem["losses"]))
+    check(loss_err <= 2e-2, f"whisper remat='full' losses "
+          f"{rem['losses']} vs {base['losses'][:k]}")
+    st = np.asarray(base["step_ms"][1:])
+    print("[16] whisper training " + json.dumps({
+        "card": card, "model": "whisper-medium (random weights, fp32 "
+        "masters, bf16 compute)", "seq_len": s, "batch": b,
+        "frames": cfg.encoder_seq_len, "steps": WHISPER_TRAIN_STEPS,
+        "step_ms_first": base["step_ms"][0],
+        "step_ms_p50": float(np.percentile(st, 50)),
+        "step_ms_p90": float(np.percentile(st, 90)),
+        "tokens_per_s": b * s / float(np.percentile(st, 50)) * 1e3,
+        "frames_per_s": b * cfg.encoder_seq_len
+        / float(np.percentile(st, 50)) * 1e3,
+        "max_memory_allocated_gb": base["peak_gb"],
+        "loss_first": base["losses"][0], "loss_last": base["losses"][-1],
+        "launches": base["launches"], "launches_by_kernel": base["variants"],
+        "remat_full": {"steps": k, "losses": rem["losses"],
+                       "loss_max_abs_err_vs_none": loss_err, "atol": 2e-2,
+                       "step_ms_p50": float(np.percentile(
+                           rem["step_ms"][1:], 50)),
+                       "max_memory_allocated_gb": rem["peak_gb"],
+                       "launches_by_kernel": rem["variants"]},
+        "profile": runs["profile"]}))
+    torch.cuda.empty_cache()
+    return base["launches"]
+
+
+def phase_whisper_timing(gen, card):
+    """Phase 7 at whisper's shapes, bf16, L2 flushed: the forward at the
+    encoder's (8 x 16 heads, 1500 x 1500, non-causal) and the training
+    cross-attention's (Sq 448 against Sk 1500), each with its bound, its
+    plain version and ``scaled_dot_product_attention`` on the same
+    tensors; at the cross shape also dq and dkv, with their bounds, the
+    plain backward and SDPA's backward (dq, dk and dv in one call).
+    Returns {kernel: {shape: {ms, bound_ms, bound_by, plain_ms,
+    library_ms}}}."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import flash_attention_bwd as fab
+    from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                         attention_ref)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    dtype = torch.bfloat16
+    counts = (fa.LAUNCHES, fa.WGMMA_LAUNCHES, fab.DQ_LAUNCHES,
+              fab.DQ_WGMMA_LAUNCHES, fab.DKV_LAUNCHES,
+              fab.DKV_WGMMA_LAUNCHES)
+    res = {"flash_attention_fwd": {}, "flash_attention_dq": {},
+           "flash_attention_dkv": {}}
+
+    def bound(flops, nbytes):
+        t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                     else "bytes")
+
+    for shape, case in (("encoder", WHISPER_ENC_FA),
+                        ("cross", WHISPER_CROSS_FA)):
+        b, h, kh, sq, sk, d = case[:6]
+        q, k, v, do = flash_inputs(case, dtype, gen, n=4)
+        pairs = b * h * sq * sk
+        e = q.element_size()
+        nq, nk, nl = q.numel() * e, k.numel() * e, b * h * sq * 4
+        k_ms = time_ms(lambda: fa.flash_attention(q, k, v, causal=False,
+                                                  return_lse=True), 20, flush)
+        p_ms = time_ms(lambda: attention_ref(q, k, v, causal=False), 3,
+                       flush)
+        lib = time_ms(lambda: F.scaled_dot_product_attention(q, k, v), 20,
+                      flush)
+        bnd, by = bound(4 * d * pairs, 2 * nq + 2 * nk + nl)
+        res["flash_attention_fwd"][shape] = {
+            "ms": k_ms[0], "bound_ms": bnd, "bound_by": by,
+            "plain_ms": p_ms[0], "library_ms": lib[0]}
+        print(f"[7] flash_attention_fwd whisper {shape} {str(dtype):14s} "
+              f"B={b} H={h} K={kh} Sq={sq} Sk={sk} D={d} non-causal: "
+              f"kernel_ms={spread(k_ms)} plain_ms={spread(p_ms)} sdpa_ms="
+              f"{spread(lib)} bound_ms={bnd:.4f} (flops {4 * d * pairs}; "
+              f"{4 * d * pairs / k_ms[0] / 1e9:.1f} TFLOP/s) [{card}]")
+        if shape == "cross":
+            o, lse = fa.flash_attention(q, k, v, causal=False,
+                                        return_lse=True)
+            _, delta = fab.flash_attention_dq(q, k, v, o, do, lse,
+                                              causal=False)
+            calls = {
+                "flash_attention_dq": (
+                    lambda: fab.flash_attention_dq(q, k, v, o, do, lse,
+                                                   causal=False),
+                    6 * d * pairs, 4 * nq + 2 * nk + 2 * nl),
+                "flash_attention_dkv": (
+                    lambda: fab.flash_attention_dkv(q, k, v, do, lse, delta,
+                                                    causal=False),
+                    8 * d * pairs, 2 * nq + 4 * nk + 2 * nl)}
+            plain = time_ms(lambda: attention_bwd_ref(
+                q, k, v, o, do, lse, causal=False), 3, flush)
+            qg, kg, vg = (t.detach().clone().requires_grad_(True)
+                          for t in (q, k, v))
+            saved = F.scaled_dot_product_attention(qg, kg, vg)
+            lib_bwd = time_ms(lambda: torch.autograd.grad(
+                saved, (qg, kg, vg), do, retain_graph=True), 20, flush)
+            for name, (fn, flops, nbytes) in calls.items():
+                t = time_ms(fn, 20, flush)
+                bnd, by = bound(flops, nbytes)
+                res[name][shape] = {
+                    "ms": t[0], "bound_ms": bnd, "bound_by": by,
+                    "plain_ms": plain[0], "library_ms": None}
+                print(f"[7] {name} whisper cross {str(dtype):14s} B={b} "
+                      f"H={h} Sq={sq} Sk={sk} D={d} non-causal: kernel_ms="
+                      f"{spread(t)} bound_ms={bnd:.4f} (flops {flops}; "
+                      f"{flops / t[0] / 1e9:.1f} TFLOP/s) [{card}]")
+            both = sum(res[n]["cross"]["ms"] for n in calls)
+            print(f"[7] flash whisper cross backward yardsticks: dq+dkv "
+                  f"ms={both:.4f} sdpa_bwd_ms={spread(lib_bwd)} (dq, dk, "
+                  f"dv in one call) "
+                  f"plain_bwd_ms={spread(plain)} [{card}]")
+            res["sdpa_bwd_cross_ms"] = lib_bwd[0]
+            del o, lse, delta, qg, kg, vg, saved
+        del q, k, v, do
+    (fa.LAUNCHES, fa.WGMMA_LAUNCHES, fab.DQ_LAUNCHES, fab.DQ_WGMMA_LAUNCHES,
+     fab.DKV_LAUNCHES, fab.DKV_WGMMA_LAUNCHES) = counts
+    return res
 
 
 def _kernel_name(mangled: str) -> str:
@@ -2946,15 +3558,24 @@ def main() -> int:
     phase_mamba_consistency(mcfg, card)
     zamba2_ssd, zamba2_fa, zcfg = phase_zamba2_serving(card)
     phase_zamba2_consistency(zcfg, card)
+    whisper_prefill = phase_whisper_serving(card)
+    phase_whisper_consistency(card)
+    whisper_train = phase_whisper_train(card)
     phase_card_vs_cpu()
     phase_card_vs_cpu("granite-moe-1b-a400m", "granite")
     phase_train_card_vs_cpu()
+    phase_train_card_vs_cpu("whisper-medium", "whisper")
+    phase_train_card_vs_cpu(label="smollm", remat="full")
+    phase_train_card_vs_cpu(label="smollm", remat="dots")
+    phase_train_card_vs_cpu(label="smollm", compress=True)
     phase_mamba_card_vs_cpu()
     phase_mamba_card_vs_cpu("zamba2-2.7b", "zamba2")
+    phase_mamba_card_vs_cpu("whisper-medium", "whisper")
     timing = phase_timing(pa, paged_attention_ref, gen, card)
     fa_timing = phase_flash_timing(gen, card)
     ssd_timing = phase_ssd_timing(gen, card)
     zamba2_timing = phase_zamba2_timing(gen, card)
+    whisper_timing = phase_whisper_timing(gen, card)
     phase_decode_profile(cfg, params, card)
     del params
     phase_train_profile(trainer, step_fn, card)
@@ -2963,7 +3584,8 @@ def main() -> int:
 
     # launches: the sum over the main paths that run the kernel, each
     # counted from 0 just before it and read just after; ms, plain_ms,
-    # bound_ms and library_ms at phase 7's main shape (zamba2's below)
+    # bound_ms and library_ms at phase 7's main shape (zamba2's and
+    # whisper's below)
     by_path = {
         "paged_attention": {"serving_smollm": pa_launches,
                             "serving_granite": granite_launches,
@@ -2974,6 +3596,10 @@ def main() -> int:
         "flash_attention_dkv": {"train": fa_launches["flash_attention_dkv"]},
         "ssd": {"mamba2_prefill": ssd_launches,
                 "zamba2_prefill": zamba2_ssd}}
+    for path, counts in (("whisper_prefill", whisper_prefill),
+                         ("whisper_train", whisper_train)):
+        for name, n in counts.items():
+            by_path[name][path] = n
     k_ms, p_ms, bound = timing[("main", torch.bfloat16)]
     kernels = [{
         "name": "paged_attention", "route": "cuda", "source": PA_SOURCE,
@@ -2998,6 +3624,8 @@ def main() -> int:
             ms, bnd, plain, lib = zamba2_timing[k["name"]]
             k["zamba2_shape"] = {"ms": ms, "bound_ms": bnd, "plain_ms": plain,
                                  "library_ms": lib}
+        if k["name"] in whisper_timing:
+            k["whisper_shape"] = whisper_timing[k["name"]]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,12 +1,14 @@
 """Training launcher.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \
-        --steps 200 --seq-len 128 --batch 8 [--reduced] [--device cpu]
+        --steps 200 --seq-len 128 --batch 8 [--reduced] [--compress] \
+        [--remat {none,dots,full}] [--device cpu]
 
 Twin of ``repro.launch.train`` with the same flags; it trains on the CUDA
-card unless ``--device`` names another.  ``--compress``, ``--remat`` other
-than ``none`` and ``--microbatches`` above 1 raise until their slices are
-ported.
+card unless ``--device`` names another.  ``--compress`` turns on the
+GradCompression service (int8, error feedback); ``--remat`` picks the
+per-layer recomputation policy.  ``--microbatches`` above 1 raises until
+the multi-device slice (the reference reads it only under a mesh).
 """
 from __future__ import annotations
 
@@ -18,6 +20,8 @@ import tempfile
 
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ShapeConfig
+from repro_torch.core.services.compression import (CompressionConfig,
+                                                   GradCompression)
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.train.loop import TrainConfig, Trainer
 
@@ -46,10 +50,6 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     args = ap.parse_args(argv)
-    if args.compress:
-        raise NotImplementedError(
-            "--compress: gradient compression waits for the compression "
-            "service's slice")
 
     cfg = get_config(args.arch)
     if args.reduced:
@@ -58,11 +58,13 @@ def main(argv=None) -> int:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
     shape = ShapeConfig("cli_train", "train", args.seq_len, args.batch)
 
+    comp = (GradCompression(CompressionConfig(bits=8, error_feedback=True))
+            if args.compress else None)
     tcfg = TrainConfig(
         steps=args.steps, log_every=max(args.steps // 20, 1),
         ckpt_every=args.ckpt_every, ckpt_dir=args.ckpt_dir,
         microbatches=args.microbatches, remat=args.remat,
-        seed=args.seed, fail_at_step=args.fail_at,
+        seed=args.seed, fail_at_step=args.fail_at, compression=comp,
         opt=AdamWConfig(lr=args.lr, total_steps=args.steps))
 
     trainer = Trainer(cfg, shape, tcfg, device=args.device)

@@ -5,9 +5,15 @@ Twin of ``repro.models.attention``.  The reference documents
 ``attend_chunked(fused=True)`` as the region that executes as the
 flash-attention kernel on the TPU; here a CUDA tensor always takes the
 hand-written kernels through ``ops.mha_fused``, and a CPU tensor the
-reference's query-chunked exact softmax.
+reference's query-chunked exact softmax.  ``attend_chunked``'s callers
+(``transformer._attn_block_fwd``) are the decoder's causal
+self-attention, the whisper encoder's non-causal self-attention over its
+frames and the decoder's non-causal cross-attention from Sq tokens to Sk
+frames.
 
-  * ``attend_decode``     — one new token against a dense KV cache;
+  * ``attend_decode``     — one new token against a dense KV cache (also
+    the encoder-decoder's cross-attention over its ``xk``/``xv`` cache,
+    ``transformer._attn_block_decode``);
   * ``attend_decode_swa`` — one new token against a ring-buffer window
     cache;
   * ``cache_update``, ``cache_update_uniform``, ``cache_update_ring`` —

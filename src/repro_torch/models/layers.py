@@ -1,4 +1,4 @@
-"""Base layers: norms, rotary embeddings, embedding lookup.
+"""Base layers: norms, rotary and sinusoidal embeddings, embedding lookup.
 
 Twin of ``repro.models.layers``.  Norms upcast to float32 and cast back;
 RoPE uses the split-half convention (first half / second half of the head
@@ -47,6 +47,22 @@ def apply_rope(x, positions, theta: float):
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_at(pos, dim: int):
+    """Whisper-style sinusoidal embeddings of the positions ``pos`` (N,)
+    as (N, dim) float32: the sines of every frequency, then the cosines."""
+    pos = torch.as_tensor(pos)
+    inv = 1.0 / (10_000.0 ** (torch.arange(0, dim, 2, dtype=torch.float32,
+                                           device=pos.device) / dim))
+    ang = pos.float()[:, None] * inv[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def sinusoidal_positions(n_pos: int, dim: int, device=None):
+    """``sinusoidal_at`` of positions 0 .. n_pos - 1: (n_pos, dim) float32."""
+    return sinusoidal_at(torch.arange(n_pos, dtype=torch.float32,
+                                      device=device), dim)
 
 
 def embed_lookup(params, ids):

@@ -11,8 +11,12 @@ mamba model, ``layers.{norm, mamba.{wz,wx,wB,wC,wdt,conv_w,conv_b,
 dt_bias,A_log,D,norm,wo}}``, and ``lm_head`` when the embeddings are
 untied.  A hybrid model's tree has ``slots``, a tuple of mamba trees (one
 per non-shared pattern slot, each stacked over the cycles), and
-``shared_attn``, one attention-plus-MLP layer; tuples stay tuples.  No
-transposes are needed: both packages multiply ``x @ W``.
+``shared_attn``, one attention-plus-MLP layer; tuples stay tuples.  An
+encoder-decoder's decoder layers add ``norm_x`` and ``xattn.{wq,wk,wv,wo}``
+and its ``encoder`` holds ``layers`` (stacked like the decoder's, without
+the cross-attention) and ``final_norm``.  The walk is generic over nested
+dicts and tuples.  No transposes are needed: both packages multiply
+``x @ W``.
 
 Every leaf is cast to ``dtype`` except ``ssm.FLOAT32_LEAVES``: the SSM's
 ``dt_bias``, ``A_log`` and ``D`` and the MoE ``router``, which stay

@@ -1,10 +1,14 @@
 """Model assembly: parameter init, the full-sequence forward, the LM head,
 the training loss and the dense-cache serving path.
 
-Twin of ``repro.models.transformer`` for decoder-only architectures:
-dense attention (``block_pattern == ("attn",)``), with a dense or MoE FFN
-(``models/moe.py``), Mamba-2 (``("mamba",)``) and the zamba2 hybrid (a
-pattern of mamba slots and one ``"shared_attn"`` block, cycled).
+Twin of ``repro.models.transformer`` for every family: dense attention
+(``block_pattern == ("attn",)``), with a dense or MoE FFN
+(``models/moe.py``), Mamba-2 (``("mamba",)``), the zamba2 hybrid (a
+pattern of mamba slots and one ``"shared_attn"`` block, cycled) and the
+whisper encoder-decoder (``n_encoder_layers``: an ``encoder`` tree of
+non-causal layers over precomputed frames, sinusoidal absolute positions,
+and a cross-attention ``xattn`` with its ``norm_x`` in every decoder
+layer; the audio frontend is a stub in both packages).
 ``init_params`` builds the reference's key tree with the same shapes and
 init scales: uniform layers stacked on a leading L axis; a hybrid's
 ``slots``, a tuple with one tree per mamba slot stacked over the cycles,
@@ -19,17 +23,21 @@ the card).  ``init_cache``, ``prefill`` and ``decode_step`` serve every
 family through a dense decode cache: per-layer KV of ``max_len``
 positions, or for a sliding-window model a ring of the window; a mamba
 model's O(1) conv and SSM states; a hybrid's mamba states per (cycle,
-slot) and one KV ring of ``decode_cache_len`` (at most 4096) per cycle.
-``remat`` other than ``"none"`` and encoder-decoder models belong to
-later slices and raise here.
+slot) and one KV ring of ``decode_cache_len`` (at most 4096) per cycle;
+an encoder-decoder's cross KV (``xk``/``xv``, one entry per frame) beside
+its self-attention KV.  ``remat`` wraps each decoder, mamba or hybrid-cycle
+body in ``torch.utils.checkpoint`` (``_remat``); the encoder runs without,
+as the reference's encoder scan does.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, Optional
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -52,13 +60,6 @@ def _is_moe_layer(cfg: ModelConfig) -> bool:
     return cfg.moe is not None
 
 
-def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.n_encoder_layers:
-        raise NotImplementedError(
-            f"{cfg.arch_id}: encoder-decoder models wait for ROADMAP queue 1 "
-            "item 20")
-
-
 def _normal(gen, shape, scale):
     return torch.randn(shape, generator=gen, device=gen.device,
                        dtype=torch.float32) * scale
@@ -76,7 +77,7 @@ def _norm(cfg: ModelConfig):
     return p
 
 
-def _attn_layer(gen, cfg: ModelConfig) -> Dict[str, Any]:
+def _attn(gen, cfg: ModelConfig) -> Dict[str, Any]:
     d, hd = cfg.d_model, cfg.resolved_head_dim
     h, k = cfg.n_heads, cfg.n_kv_heads
     attn = {"wq": _dense(gen, d, h * hd), "wk": _dense(gen, d, k * hd),
@@ -85,6 +86,14 @@ def _attn_layer(gen, cfg: ModelConfig) -> Dict[str, Any]:
     if cfg.qkv_bias:
         attn.update(bq=torch.zeros(h * hd), bk=torch.zeros(k * hd),
                     bv=torch.zeros(k * hd))
+    return attn
+
+
+def _attn_layer(gen, cfg: ModelConfig, *,
+                cross: bool = False) -> Dict[str, Any]:
+    """Self-attention plus FFN; ``cross`` adds a decoder layer's
+    cross-attention ``xattn`` (its own wq, wk, wv, wo) and its ``norm_x``."""
+    d, attn = cfg.d_model, _attn(gen, cfg)
     f = cfg.d_ff
     if _is_moe_layer(cfg):
         ffn = moe.moe_init(gen, cfg)
@@ -94,8 +103,11 @@ def _attn_layer(gen, cfg: ModelConfig) -> Dict[str, Any]:
     else:
         ffn = {"w_up": _dense(gen, d, f), "b_up": torch.zeros(f),
                "w_down": _dense(gen, f, d), "b_down": torch.zeros(d)}
-    return {"norm1": _norm(cfg), "attn": attn, "norm2": _norm(cfg),
-            "ffn": ffn}
+    p = {"norm1": _norm(cfg), "attn": attn, "norm2": _norm(cfg),
+         "ffn": ffn}
+    if cross:
+        p.update(norm_x=_norm(cfg), xattn=_attn(gen, cfg))
+    return p
 
 
 def _stack(trees):
@@ -115,9 +127,10 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator,
     on the generator's device and casts it to ``dtype`` on ``device``
     before stacking, so at most one layer is alive in float32 (the SSM's
     ``dt_bias``, ``A_log`` and ``D`` and the MoE router stay float32, as
-    in the reference)."""
+    in the reference).  An encoder-decoder model also gets ``encoder``:
+    {"layers": its stacked self-attention layers, "final_norm": a
+    LayerNorm}."""
     device = resolve_device(device)
-    _check_supported(cfg)
 
     def cast(tree):
         return ssm.cast(tree, device, dtype)
@@ -144,9 +157,17 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator,
         per = [cast(_mamba_layer(generator, cfg))
                for _ in range(cfg.n_layers)]
     else:
-        per = [cast(_attn_layer(generator, cfg))
+        cross = cfg.n_encoder_layers > 0
+        per = [cast(_attn_layer(generator, cfg, cross=cross))
                for _ in range(cfg.n_layers)]
     p["layers"] = _stack(per)
+    if cfg.n_encoder_layers:
+        enc = [cast(_attn_layer(generator, cfg))
+               for _ in range(cfg.n_encoder_layers)]
+        p["encoder"] = {
+            "layers": _stack(enc),
+            "final_norm": cast({"scale": torch.ones(cfg.d_model),
+                                "bias": torch.zeros(cfg.d_model)})}
     return p
 
 
@@ -174,9 +195,11 @@ def _ffn(p, cfg: ModelConfig, h):
 
 
 def _attn_block_fwd(p, cfg: ModelConfig, x, *, causal: bool, q_offset: int,
-                    fused: bool = False):
-    """Self-attention + FFN with residuals.  Returns (x, aux or None,
-    (k, v)), k after RoPE, for prefill cache capture."""
+                    enc_out=None, fused: bool = False):
+    """Self-attention (+ cross-attention over ``enc_out`` when given) +
+    FFN with residuals.  Returns (x, aux or None, (k, v), xkv): k after
+    RoPE, for prefill cache capture; xkv the cross-attention's (k, v) from
+    ``enc_out`` (no RoPE), or None."""
     h = layers.norm_apply(p["norm1"], x, cfg.norm_eps)
     q, k, v = attention.qkv_proj(p["attn"], cfg, h)
     if cfg.pos_embed == "rope":
@@ -187,9 +210,22 @@ def _attn_block_fwd(p, cfg: ModelConfig, x, *, causal: bool, q_offset: int,
                                    window=cfg.swa_window, q_offset=0,
                                    fused=fused)
     x = x + attention.out_proj(p["attn"], cfg, att)
+    xkv = None
+    if enc_out is not None:
+        hx = layers.norm_apply(p["norm_x"], x, cfg.norm_eps)
+        hd, kh = cfg.resolved_head_dim, cfg.n_kv_heads
+        qx = (hx @ p["xattn"]["wq"].to(hx.dtype)).reshape(
+            hx.shape[0], hx.shape[1], cfg.n_heads, hd)
+        ek = (enc_out @ p["xattn"]["wk"].to(enc_out.dtype)).reshape(
+            enc_out.shape[0], enc_out.shape[1], kh, hd)
+        ev = (enc_out @ p["xattn"]["wv"].to(enc_out.dtype)).reshape(
+            enc_out.shape[0], enc_out.shape[1], kh, hd)
+        ax = attention.attend_chunked(qx, ek, ev, causal=False, fused=fused)
+        x = x + attention.out_proj(p["xattn"], cfg, ax)
+        xkv = (ek, ev)
     h = layers.norm_apply(p["norm2"], x, cfg.norm_eps)
     out, aux = _ffn(p["ffn"], cfg, h)
-    return x + out, aux, (k, v)
+    return x + out, aux, (k, v), xkv
 
 
 def _mamba_block_fwd(p, cfg: ModelConfig, x):
@@ -198,56 +234,122 @@ def _mamba_block_fwd(p, cfg: ModelConfig, x):
     return x + out, final_cache
 
 
-def forward(params, cfg: ModelConfig, tokens, *, remat: str = "none",
-            collect_kv: bool = False, compute_dtype=None,
-            fused_attention: bool = False):
-    """Full-sequence forward.  tokens (B, S) integer.
+def _save_dots(ctx, op, *args, **kwargs):
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
 
-    Returns (hidden (B,S,D), aux_loss, kv_stack_or_None, (None, None,
-    mamba_states_or_None)) as the reference does for a decoder-only model.
-    ``aux_loss`` is the sum of the MoE layers' load-balancing losses (0
-    without MoE).  ``collect_kv``: per-layer (k, v) stacked to (L, B, S,
-    K, hd), or for a mamba model each layer's final {"conv" (L,B,K-1,C),
+
+def _remat(fn, policy: str):
+    """The reference's ``_remat`` on one layer body.  ``"none"``: ``fn``
+    as it is.  ``"full"`` (the reference's ``nothing_saveable``): only the
+    body's inputs are kept and the backward runs the whole body again,
+    attention kernels included.  Any other policy (the reference's
+    ``checkpoint_dots_with_no_batch_dims``): the outputs of the 2-D matrix
+    products ``aten.mm`` and ``aten.addmm`` are saved (every ``x @ W``
+    projection and FFN product, which reach the dispatcher as one 2-D
+    product over the flattened rows); everything else (norms,
+    activations, RoPE, attention, batched products such as ``bmm``) is
+    recomputed in the backward."""
+    if policy == "none":
+        return fn
+    kw = {"use_reentrant": False}
+    if policy != "full":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)
+    return lambda *args: checkpoint(fn, *args, **kw)
+
+
+def encode(params, cfg: ModelConfig, frames):
+    """Whisper encoder: frames (B, enc_seq, D) -> enc_out (B, enc_seq, D).
+    Sinusoidal positions, every layer non-causal, then the encoder's
+    final LayerNorm.  No remat, as in the reference."""
+    pe = layers.sinusoidal_positions(frames.shape[1], cfg.d_model,
+                                     device=frames.device)
+    x = frames + pe[None].to(frames.dtype)
+    enc = params["encoder"]
+    for lp in _unstack(enc["layers"], cfg.n_encoder_layers):
+        x, _, _, _ = _attn_block_fwd(lp, cfg, x, causal=False, q_offset=0)
+    return layers.norm_apply(enc["final_norm"], x, cfg.norm_eps)
+
+
+def _embed_tokens(params, cfg: ModelConfig, tokens, *, offset: int = 0):
+    x = layers.embed_lookup(params["embed"], tokens.long())
+    if cfg.pos_embed == "absolute":
+        pe = layers.sinusoidal_positions(offset + tokens.shape[1],
+                                         cfg.d_model,
+                                         device=x.device)[offset:]
+        x = x + pe[None].to(x.dtype)
+    return x
+
+
+def forward(params, cfg: ModelConfig, tokens, *, encoder_frames=None,
+            remat: str = "none", collect_kv: bool = False,
+            compute_dtype=None, fused_attention: bool = False):
+    """Full-sequence forward.  tokens (B, S) integer; ``encoder_frames``
+    (B, enc_seq, D), which an encoder-decoder model needs.
+
+    Returns (hidden (B,S,D), aux_loss, kv_stack_or_None, (enc_out, xkv,
+    mamba_states)) as the reference does.  ``aux_loss`` is the sum of the
+    MoE layers' load-balancing losses (0 without MoE).  ``collect_kv``:
+    per-layer (k, v) stacked to (L, B, S, K, hd), and for an
+    encoder-decoder the cross (k, v) stacked to (L, B, enc_seq, K, hd) as
+    ``xkv``; for a mamba model each layer's final {"conv" (L,B,K-1,C),
     "ssm" (L,B,H,P,N) float32} cache; for a hybrid the shared block's
     (k, v) of each cycle, (NC, B, S, K, hd), and the mamba states stacked
-    to (NC, n_mamba, B, ...).  ``compute_dtype``: activation dtype (params
-    stay float32 masters, weights cast at use sites); None keeps the param
+    to (NC, n_mamba, B, ...).  ``enc_out`` is the encoder's output (None
+    without an encoder).  ``remat``: "none", "full" or "dots", each
+    decoder, mamba or hybrid-cycle body checkpointed by ``_remat``.
+    ``compute_dtype``: activation dtype, frames included (params stay
+    float32 masters, weights cast at use sites); None keeps the param
     dtype.
     """
-    _check_supported(cfg)
-    if remat != "none":
-        raise NotImplementedError(
-            f"remat={remat!r} waits for a later slice; the port runs "
-            "remat='none'")
-    x = layers.embed_lookup(params["embed"], tokens.long())
+    x = _embed_tokens(params, cfg, tokens)
     if compute_dtype is not None:
         x = x.to(compute_dtype)
+        if encoder_frames is not None:
+            encoder_frames = encoder_frames.to(compute_dtype)
+    enc_out = None
+    if cfg.n_encoder_layers:
+        if encoder_frames is None:
+            raise ValueError(f"{cfg.arch_id} needs encoder frames")
+        enc_out = encode(params, cfg, encoder_frames)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if not _uniform(cfg):
         x, kv, ms = _hybrid_fwd(params, cfg, x, collect_kv=collect_kv,
-                                fused=fused_attention)
+                                fused=fused_attention, remat=remat)
         return x, aux, kv, (None, None, ms)
     if cfg.block_pattern[0] == "mamba":
+        body = _remat(lambda lp, x: _mamba_block_fwd(lp, cfg, x), remat)
         states = []
         for lp in _unstack(params["layers"], cfg.n_layers):
-            x, fc = _mamba_block_fwd(lp, cfg, x)
+            x, fc = body(lp, x)
             if collect_kv:
                 states.append(fc)
         x = layers.norm_apply(params["final_norm"], x, cfg.norm_eps)
         ms = _stack_states(states) if collect_kv else None
         return x, aux, None, (None, None, ms)
-    ks, vs = [], []
+
+    def layer(lp, x, enc_out):
+        return _attn_block_fwd(lp, cfg, x, causal=True, q_offset=0,
+                               enc_out=enc_out, fused=fused_attention)
+
+    body = _remat(layer, remat)
+    ks, vs, xks, xvs = [], [], [], []
     for lp in _unstack(params["layers"], cfg.n_layers):
-        x, la, (k, v) = _attn_block_fwd(lp, cfg, x, causal=True, q_offset=0,
-                                        fused=fused_attention)
+        x, la, (k, v), xkv = body(lp, x, enc_out)
         if la is not None:
             aux = aux + la
         if collect_kv:
             ks.append(k)
             vs.append(v)
+            if xkv is not None:
+                xks.append(xkv[0])
+                xvs.append(xkv[1])
     x = layers.norm_apply(params["final_norm"], x, cfg.norm_eps)
     kv = (torch.stack(ks), torch.stack(vs)) if collect_kv else None
-    return x, aux, kv, (None, None, None)
+    xkv = (torch.stack(xks), torch.stack(xvs)) if xks else None
+    return x, aux, kv, (enc_out, xkv, None)
 
 
 def _stack_states(states):
@@ -255,31 +357,37 @@ def _stack_states(states):
 
 
 def _hybrid_fwd(params, cfg: ModelConfig, x, *, collect_kv: bool,
-                fused: bool):
-    """The pattern run once per cycle: each mamba slot with its cycle's
-    weights, the shared block with the one shared tree (no window: the
-    reference's forward attends to the whole prefix).  Returns the final
-    hidden states, the cycles' (k, v) and the stacked mamba states (None
-    without ``collect_kv``)."""
+                fused: bool, remat: str = "none"):
+    """The pattern run once per cycle (one ``_remat`` body): each mamba
+    slot with its cycle's weights, the shared block with the one shared
+    tree (no window: the reference's forward attends to the whole
+    prefix).  Returns the final hidden states, the cycles' (k, v) and the
+    stacked mamba states (None without ``collect_kv``)."""
     nc = _n_cycles(cfg)
     slots = [_unstack(sp, nc) for sp in params["slots"]]
-    ks, vs, states = [], [], []
-    for c in range(nc):
-        si, cycle = 0, []
+
+    def cycle(slot_params, x):
+        kv, states, si = None, [], 0
         for kind in cfg.block_pattern:
             if kind == "shared_attn":
-                x, _, (k, v) = _attn_block_fwd(params["shared_attn"], cfg, x,
-                                               causal=True, q_offset=0,
-                                               fused=fused)
-                if collect_kv:
-                    ks.append(k)
-                    vs.append(v)
+                x, _, kv, _ = _attn_block_fwd(params["shared_attn"], cfg, x,
+                                              causal=True, q_offset=0,
+                                              fused=fused)
             else:
-                x, fc = _mamba_block_fwd(slots[si][c], cfg, x)
-                cycle.append(fc)
+                x, fc = _mamba_block_fwd(slot_params[si], cfg, x)
+                states.append(fc)
                 si += 1
+        return x, kv, states
+
+    body = _remat(cycle, remat)
+    ks, vs, states = [], [], []
+    for c in range(nc):
+        x, kv, cyc = body([sp[c] for sp in slots], x)
         if collect_kv:
-            states.append(_stack_states(cycle))
+            if kv is not None:
+                ks.append(kv[0])
+                vs.append(kv[1])
+            states.append(_stack_states(cyc))
     x = layers.norm_apply(params["final_norm"], x, cfg.norm_eps)
     kv = (torch.stack(ks), torch.stack(vs)) if collect_kv and ks else None
     return x, kv, (_stack_states(states) if collect_kv else None)
@@ -317,11 +425,12 @@ def xent_loss(params, cfg: ModelConfig, hidden, labels, mask, *,
 def loss_fn(params, cfg: ModelConfig, batch, *, remat: str = "none",
             aux_weight: float = 0.01, compute_dtype=None,
             fused_attention: bool = False):
-    """batch: {"tokens" (B,S)}.  Next-token LM loss.  Returns (total,
-    {"loss", "aux_loss", "tokens"})."""
+    """batch: {"tokens" (B,S), optional "frames" (B,enc_seq,D)}.
+    Next-token LM loss.  Returns (total, {"loss", "aux_loss", "tokens"})."""
     tokens = batch["tokens"].long()
-    hidden, aux, _, _ = forward(params, cfg, tokens, remat=remat,
-                                compute_dtype=compute_dtype,
+    hidden, aux, _, _ = forward(params, cfg, tokens,
+                                encoder_frames=batch.get("frames"),
+                                remat=remat, compute_dtype=compute_dtype,
                                 fused_attention=fused_attention)
     labels = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])],
                        dim=1)
@@ -344,15 +453,16 @@ def decode_cache_len(cfg: ModelConfig, max_len: int) -> int:
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
-               dtype=torch.bfloat16, device=None) -> Dict:
+               dtype=torch.bfloat16, device=None, enc_seq: int = 0) -> Dict:
     """Decode state, stacked on the layer axis.  An attention model:
     {"k", "v"} each (L,B,KL,K,hd) in ``dtype``, KL = ``decode_cache_len``
-    (a ring of the window for a sliding-window model).  A mamba model:
+    (a ring of the window for a sliding-window model); an encoder-decoder
+    also {"xk", "xv"} each (L,B,enc_seq,K,hd), the cross KV that
+    ``prefill`` fills from the encoder's output.  A mamba model:
     {"mamba": {"conv" (L,B,K-1,C) in ``dtype``, "ssm" (L,B,H,P,N)
     float32}}, whose size does not depend on ``max_len``.  A hybrid:
     {"mamba": {"conv" (NC,n_mamba,B,K-1,C), "ssm" (NC,n_mamba,B,H,P,N)},
     "k"/"v" (NC,B,KL,K,hd)}, KL at most 4096, one ring per cycle."""
-    _check_supported(cfg)
     device = resolve_device(device)
     if not _uniform(cfg):
         lead = (_n_cycles(cfg),
@@ -365,7 +475,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
         one = ssm.mamba_cache_init(cfg, batch, dtype=dtype, device=device)
         return {"mamba": {k: v.expand((cfg.n_layers,) + v.shape).clone()
                           for k, v in one.items()}}
-    return _kv_cache(cfg, cfg.n_layers, batch, max_len, dtype, device)
+    c = _kv_cache(cfg, cfg.n_layers, batch, max_len, dtype, device)
+    if cfg.n_encoder_layers:
+        shape = (cfg.n_layers, batch, enc_seq, cfg.n_kv_heads,
+                 cfg.resolved_head_dim)
+        c["xk"] = torch.zeros(shape, dtype=dtype, device=device)
+        c["xv"] = torch.zeros(shape, dtype=dtype, device=device)
+    return c
 
 
 def _kv_cache(cfg: ModelConfig, n: int, batch: int, max_len: int, dtype,
@@ -378,9 +494,10 @@ def _kv_cache(cfg: ModelConfig, n: int, batch: int, max_len: int, dtype,
 
 
 def _attn_block_decode(p, cfg: ModelConfig, x, kc, vc, pos, *,
-                       uniform_pos: bool = False):
+                       xk=None, xv=None, uniform_pos: bool = False):
     """One-token attention block.  x (B,1,D); kc/vc (B,KL,K,hd), written
-    in place; pos (B,)."""
+    in place; pos (B,).  ``xk``/``xv`` (B,enc_seq,K,hd): an
+    encoder-decoder layer's cross KV, read whole, never written."""
     kl = kc.shape[1]
     ring = bool(cfg.swa_window) or cfg.family == "hybrid"
     h = layers.norm_apply(p["norm1"], x, cfg.norm_eps)
@@ -399,6 +516,14 @@ def _attn_block_decode(p, cfg: ModelConfig, x, kc, vc, pos, *,
             attention.cache_update(kc, vc, k, v, pos)
         att = attention.attend_decode(q, kc, vc, pos + 1)
     x = x + attention.out_proj(p["attn"], cfg, att)
+    if xk is not None:
+        hx = layers.norm_apply(p["norm_x"], x, cfg.norm_eps)
+        b = hx.shape[0]
+        qx = (hx @ p["xattn"]["wq"].to(hx.dtype)).reshape(
+            b, 1, cfg.n_heads, cfg.resolved_head_dim)
+        ax = attention.attend_decode(
+            qx, xk, xv, torch.full((b,), xk.shape[1], device=hx.device))
+        x = x + attention.out_proj(p["xattn"], cfg, ax)
     h = layers.norm_apply(p["norm2"], x, cfg.norm_eps)
     return x + _ffn(p["ffn"], cfg, h)[0]
 
@@ -410,9 +535,14 @@ def _mamba_block_decode(p, cfg: ModelConfig, x, cache):
 
 
 def _embed_tokens_decode(params, cfg: ModelConfig, tokens, pos):
-    """Token embeddings; the reference's absolute-position branch belongs
-    to the encoder-decoder slice, which ``_check_supported`` refuses."""
-    return layers.embed_lookup(params["embed"], tokens.long())
+    """Token embeddings, plus for an absolute-position model (whisper)
+    the sinusoidal embedding of each row's own position ``pos`` (B,)."""
+    x = layers.embed_lookup(params["embed"], tokens.long())
+    if cfg.pos_embed == "absolute":
+        pe = layers.sinusoidal_at(torch.as_tensor(pos, device=x.device),
+                                  cfg.d_model)
+        x = x + pe[:, None].to(x.dtype)
+    return x
 
 
 @torch.no_grad()
@@ -424,8 +554,9 @@ def decode_step(params, cfg: ModelConfig, cache: Dict, tokens, pos, *,
     reference's does).
 
     Returns (logits (B,V) float32, cache).  The cache is updated in place
-    and returned: the port's form of the reference's donated cache."""
-    _check_supported(cfg)
+    and returned: the port's form of the reference's donated cache.  An
+    encoder-decoder's ``xk``/``xv`` are read by every layer's
+    cross-attention and carried unchanged."""
     if cp_mesh is not None:
         raise NotImplementedError(
             "context-parallel decode (cp_mesh) waits for the tensor-parallel "
@@ -443,10 +574,13 @@ def decode_step(params, cfg: ModelConfig, cache: Dict, tokens, pos, *,
             mc["ssm"][i].copy_(new["ssm"])
     else:
         pos = torch.as_tensor(pos, device=x.device).long()
+        cross = cfg.n_encoder_layers > 0
         for i, lp in enumerate(_unstack(params["layers"], cfg.n_layers)):
-            x = _attn_block_decode(lp, cfg, x, cache["k"][i],
-                                   cache["v"][i], pos,
-                                   uniform_pos=uniform_pos)
+            x = _attn_block_decode(
+                lp, cfg, x, cache["k"][i], cache["v"][i], pos,
+                xk=cache["xk"][i] if cross else None,
+                xv=cache["xv"][i] if cross else None,
+                uniform_pos=uniform_pos)
     x = layers.norm_apply(params["final_norm"], x, cfg.norm_eps)
     return lm_logits(params, cfg, x)[:, 0], cache
 
@@ -490,15 +624,16 @@ def _fill(kc, knew):
 
 @torch.no_grad()
 def prefill(params, cfg: ModelConfig, tokens, max_len: int, *,
-            cache_dtype=torch.bfloat16):
+            encoder_frames=None, cache_dtype=torch.bfloat16):
     """Run the full prompt, build the decode cache, return last-token
-    logits.  tokens (B, S).  Returns (logits (B,V) float32, cache) laid
+    logits.  tokens (B, S); ``encoder_frames`` (B, enc_seq, D) for an
+    encoder-decoder model.  Returns (logits (B,V) float32, cache) laid
     out as ``init_cache`` lays it out: KV in ``cache_dtype`` sized for
     ``max_len`` (or the window; a hybrid's ring of at most 4096), the
-    mamba conv states in ``cache_dtype`` and SSM states float32."""
-    _check_supported(cfg)
-    hidden, _, kv, (_, _, states) = forward(params, cfg, tokens,
-                                            collect_kv=True)
+    cross KV of every frame, the mamba conv states in ``cache_dtype`` and
+    SSM states float32."""
+    hidden, _, kv, (_, xkv, states) = forward(
+        params, cfg, tokens, encoder_frames=encoder_frames, collect_kv=True)
     cache = {}
     if states is not None:
         cache["mamba"] = {"conv": states["conv"].to(cache_dtype),
@@ -508,4 +643,7 @@ def prefill(params, cfg: ModelConfig, tokens, max_len: int, *,
                                max_len, cache_dtype, hidden.device))
         _fill(cache["k"], kv[0])
         _fill(cache["v"], kv[1])
+    if xkv is not None:
+        cache["xk"] = xkv[0].to(cache_dtype)
+        cache["xv"] = xkv[1].to(cache_dtype)
     return lm_logits(params, cfg, hidden[:, -1:])[:, 0], cache

@@ -9,13 +9,19 @@ Twin of ``repro.train.loop`` for one device:
     ``Trainer.restore`` loads them into whatever device this trainer owns;
   * straggler mitigation — the prefetcher feeds through a timeout; a
     straggling host's batch is skipped (logged) instead of stalling the
-    step.
+    step;
+  * gradient compression — optional GradCompression service (int8 + error
+    feedback, the residuals kept in the optimizer state as ``"ef"`` and
+    checkpointed with it);
+  * activation recomputation — ``remat`` ("none", "full", "dots") per
+    layer body (``models/transformer.py::_remat``).
 
-A step is ``loss_fn`` -> ``torch.autograd.grad`` -> ``adamw.update``, the
-update in place under ``torch.no_grad()``.  On the card every attention
-forward and backward runs the flash-attention kernels.  The mesh bundle,
-gradient compression, ``remat`` other than ``"none"`` and microbatching
-wait for later slices and raise ``NotImplementedError``.
+A step is ``loss_fn`` -> ``torch.autograd.grad`` -> (compression) ->
+``adamw.update``, the update in place under ``torch.no_grad()``.  An
+encoder-decoder model's batches carry frames.  On the card every
+attention forward and backward runs the flash-attention kernels.  The
+mesh bundle and microbatching (which the reference reads only under a
+mesh) wait for the multi-device slice and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -85,16 +91,10 @@ class Trainer:
             raise NotImplementedError(
                 "Trainer(mesh=...): the mesh bundle waits for the "
                 "multi-device slice")
-        if tcfg.compression is not None:
-            raise NotImplementedError(
-                "TrainConfig.compression waits for the compression "
-                "service's slice")
-        if tcfg.remat != "none":
-            raise NotImplementedError(
-                f"TrainConfig.remat={tcfg.remat!r} waits for a later slice")
         if tcfg.microbatches != 1:
             raise NotImplementedError(
-                "TrainConfig.microbatches > 1 waits for a later slice")
+                "TrainConfig.microbatches > 1 waits for the multi-device "
+                "slice (the reference reads it only under a mesh)")
         if len(cfg.block_pattern) != 1:
             raise NotImplementedError(
                 f"{cfg.arch_id}: training a hybrid model waits for ROADMAP "
@@ -119,8 +119,14 @@ class Trainer:
         leaves = adamw.flatten(params)
         grads = torch.autograd.grad(loss, list(leaves.values()))
         grads = adamw.unflatten(dict(zip(leaves, grads)))
+        new_ef = None
+        if tcfg.compression is not None:
+            ef = opt_state.pop("ef", None)
+            grads, new_ef, _ = tcfg.compression.apply(grads, ef)
         params, opt_state, om = adamw.update(grads, opt_state, params,
                                              tcfg.opt)
+        if new_ef is not None:
+            opt_state["ef"] = new_ef
         m = {k: v.detach() for k, v in metrics.items()}
         m.update(om)
         return params, opt_state, m
@@ -135,6 +141,9 @@ class Trainer:
             dtype=tcfg.param_dtype, device=self.device)
         self.params = self._trainable(params)
         self.opt_state = adamw.init(self.params)
+        if tcfg.compression is not None and \
+                tcfg.compression.config.error_feedback:
+            self.opt_state["ef"] = tcfg.compression.init_state(self.params)
         self.step = 0
 
         dcfg = DataConfig(

@@ -1,14 +1,17 @@
-"""The port's MoE and hybrid models against the JAX reference, on the CPU
-(twin of ``tests/test_archs_smoke.py``).
+"""Every architecture of the port against the JAX reference, on the CPU
+(twin of ``tests/test_archs_smoke.py``, parametrized like it over every
+arch in ``repro.configs.ARCHS``).
 
-Reduced granite-moe-1b-a400m (4 experts, top-2), llama4-scout-17b-a16e
-(4 experts, top-1 plus a shared expert) and zamba2-2.7b (2 cycles of 5
-mamba slots and the shared attention block), fp32, on the reference's
-``init_params`` weights bridged by ``from_reference``: the parameter
-trees, ``forward`` (hidden states, the summed MoE aux loss, the collected
-KV and mamba states), ``loss_fn``, the MoE models' every gradient,
-``prefill`` plus teacher-forced ``decode_step``s, and decode against
-``forward`` on the longer sequence.
+Each arch's reduced config, fp32, on the reference's ``init_params``
+weights bridged by ``from_reference``; among them granite-moe-1b-a400m (4
+experts, top-2), llama4-scout-17b-a16e (4 experts, top-1 plus a shared
+expert), zamba2-2.7b (2 cycles of 5 mamba slots and the shared attention
+block) and whisper-medium (2 encoder and 2 decoder layers over 32 frames,
+which every call is given, as the reference's test gives them): the
+parameter trees, ``forward`` (hidden states, the summed MoE aux loss, the
+collected KV, cross KV and mamba states), ``loss_fn``, the MoE models' and
+whisper's every gradient, ``prefill`` plus teacher-forced
+``decode_step``s, and decode against ``forward`` on the longer sequence.
 
 Tolerances: forward and loss atol 1e-5 (the frameworks sum in other
 orders, ~1e-6 on O(1) values); gradients 2e-5, as the smollm twins in
@@ -26,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import ARCHS as JARCHS
 from repro.configs import get_config as jget
 from repro.models import transformer as JT
 from repro.optim import adamw as jadamw
@@ -37,8 +41,9 @@ from repro_torch.train.loop import Trainer
 
 torch.set_num_threads(1)
 
-ARCHS = ["granite-moe-1b-a400m", "llama4-scout-17b-a16e", "zamba2-2.7b"]
-MOE_ARCHS = ARCHS[:2]
+ARCHS = sorted(JARCHS)
+GRAD_ARCHS = ["granite-moe-1b-a400m", "llama4-scout-17b-a16e",
+              "whisper-medium"]
 ATOL = 1e-4
 
 
@@ -60,6 +65,29 @@ def _tokens(cfg, b, s, seed):
         0, cfg.vocab_size, size=(b, s)).astype(np.int32)
 
 
+def _frames(cfg, b, seed):
+    """The encoder's frames for an encoder-decoder model, else None."""
+    if not cfg.n_encoder_layers:
+        return None
+    return np.random.RandomState(seed).randn(
+        b, cfg.encoder_seq_len, cfg.d_model).astype(np.float32)
+
+
+def _j(x):
+    return None if x is None else jnp.asarray(x)
+
+
+def _t(x):
+    return None if x is None else torch.as_tensor(x)
+
+
+def _batch(toks, frames, conv):
+    batch = {"tokens": conv(toks)}
+    if frames is not None:
+        batch["frames"] = conv(frames)
+    return batch
+
+
 def _shapes(tree):
     return jax.tree.map(lambda a: tuple(a.shape), tree)
 
@@ -79,15 +107,21 @@ def test_param_trees_match_reference(model):
 
 def test_forward_matches_reference(model):
     jcfg, cfg, _, ref, params = model
-    toks = _tokens(cfg, 2, 24, 1)
-    jh, jaux, jkv, (_, _, jms) = JT.forward(ref, jcfg, jnp.asarray(toks),
-                                            collect_kv=True)
-    h, aux, kv, (_, _, ms) = T.forward(params, cfg, torch.tensor(toks),
-                                       collect_kv=True)
+    toks, fr = _tokens(cfg, 2, 24, 1), _frames(cfg, 2, 1)
+    jh, jaux, jkv, (je, jxkv, jms) = JT.forward(
+        ref, jcfg, jnp.asarray(toks), encoder_frames=_j(fr), collect_kv=True)
+    h, aux, kv, (e, xkv, ms) = T.forward(
+        params, cfg, torch.tensor(toks), encoder_frames=_t(fr),
+        collect_kv=True)
     np.testing.assert_allclose(h.detach().numpy(), np.asarray(jh), atol=1e-5)
     assert abs(float(aux) - float(jaux)) <= 1e-5
     assert (float(aux) > 0) == (cfg.moe is not None)
-    for got, want in zip(kv, jkv):
+    assert (kv is None) == (jkv is None)
+    assert (xkv is None) == (jxkv is None) == (e is None) == (je is None)
+    pairs = list(zip(kv or (), jkv or ())) + list(zip(xkv or (), jxkv or ()))
+    if e is not None:
+        pairs.append((e, je))
+    for got, want in pairs:
         assert got.shape == want.shape
         np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
                                    atol=1e-5)
@@ -101,30 +135,31 @@ def test_forward_matches_reference(model):
 
 def test_loss_matches_reference(model):
     jcfg, cfg, _, ref, params = model
-    toks = _tokens(cfg, 2, 32, 2)
-    jl, jm = JT.loss_fn(ref, jcfg, {"tokens": jnp.asarray(toks)})
-    loss, m = T.loss_fn(params, cfg, {"tokens": torch.tensor(toks)})
+    toks, fr = _tokens(cfg, 2, 32, 2), _frames(cfg, 2, 2)
+    jl, jm = JT.loss_fn(ref, jcfg, _batch(toks, fr, jnp.asarray))
+    loss, m = T.loss_fn(params, cfg, _batch(toks, fr, torch.as_tensor))
     np.testing.assert_allclose(loss.item(), float(jl), atol=1e-5)
     np.testing.assert_allclose(float(m["aux_loss"]), float(jm["aux_loss"]),
                                atol=1e-5)
     assert float(m["tokens"]) == float(jm["tokens"]) == 2 * 31
 
 
-@pytest.mark.parametrize("arch", MOE_ARCHS)
+@pytest.mark.parametrize("arch", GRAD_ARCHS)
 def test_moe_gradients_match_jax_grad(arch):
-    """Every leaf's gradient of the total loss, the router's through the
-    gates and the aux loss included."""
+    """Every leaf's gradient of the total loss: a MoE model's router's
+    through the gates and the aux loss included; whisper's encoder, its
+    cross-attention and ``norm_x`` included."""
     jcfg = jget(arch).reduced()
     ref = _np(JT.init_params(jax.random.PRNGKey(3), jcfg,
                              dtype=jnp.float32))
-    toks = _tokens(jcfg, 2, 32, 4)
+    toks, fr = _tokens(jcfg, 2, 32, 4), _frames(jcfg, 2, 4)
     (jl, jm), jg = jax.value_and_grad(
-        lambda p: JT.loss_fn(p, jcfg, {"tokens": jnp.asarray(toks)}),
+        lambda p: JT.loss_fn(p, jcfg, _batch(toks, fr, jnp.asarray)),
         has_aux=True)(jax.tree.map(jnp.asarray, ref))
     params = Trainer._trainable(from_reference(ref, device="cpu"))
-    loss, m = T.loss_fn(params, get_config(arch).reduced(),
-                        {"tokens": torch.tensor(toks)})
-    assert float(m["aux_loss"].detach()) > 0
+    cfg = get_config(arch).reduced()
+    loss, m = T.loss_fn(params, cfg, _batch(toks, fr, torch.as_tensor))
+    assert (float(m["aux_loss"].detach()) > 0) == (cfg.moe is not None)
     leaves = adamw.flatten(params)
     grads = dict(zip(leaves, torch.autograd.grad(loss,
                                                  list(leaves.values()))))
@@ -132,7 +167,11 @@ def test_moe_gradients_match_jax_grad(arch):
     want = {k: np.asarray(v) for k, v in
             jadamw._flatten_with_path(jg).items()}
     assert set(grads) == set(want)
-    assert any("router" in k for k in grads)
+    if cfg.moe is not None:
+        assert any("router" in k for k in grads)
+    else:
+        assert {"encoder/layers/attn/wq", "layers/xattn/wk",
+                "layers/norm_x/bias"} <= set(grads)
     for path, g in grads.items():
         np.testing.assert_allclose(g.numpy(), want[path], atol=2e-5,
                                    err_msg=path)
@@ -140,7 +179,7 @@ def test_moe_gradients_match_jax_grad(arch):
 
 def _cache_pairs(jc, pc):
     out = []
-    for k in ("k", "v"):
+    for k in ("k", "v", "xk", "xv"):
         if k in jc:
             out.append((k, jc[k], pc[k]))
     if "mamba" in jc:
@@ -151,12 +190,12 @@ def _cache_pairs(jc, pc):
 
 def test_prefill_and_teacher_forced_decode_match_reference(model):
     jcfg, cfg, jparams, _, params = model
-    toks = _tokens(cfg, 2, 30, 5)
+    toks, fr = _tokens(cfg, 2, 30, 5), _frames(cfg, 2, 5)
     s, max_len = 22, 40
     jl, jc = JT.prefill(jparams, jcfg, jnp.asarray(toks[:, :s]), max_len,
-                        cache_dtype=jnp.float32)
+                        encoder_frames=_j(fr), cache_dtype=jnp.float32)
     pl, pc = T.prefill(params, cfg, torch.as_tensor(toks[:, :s]), max_len,
-                       cache_dtype=torch.float32)
+                       encoder_frames=_t(fr), cache_dtype=torch.float32)
     assert set(pc) == set(jc)
     steps = [(np.asarray(jl), pl.numpy())]
     for t in range(s, toks.shape[1]):
@@ -183,11 +222,12 @@ def test_decode_matches_forward(model):
     """Teacher-forced decode reproduces the full forward's logits."""
     _, cfg, _, _, params = model
     toks = torch.as_tensor(_tokens(cfg, 1, 12, 6))
-    hidden, _, _, _ = T.forward(params, cfg, toks)
+    fr = _t(_frames(cfg, 1, 6))
+    hidden, _, _, _ = T.forward(params, cfg, toks, encoder_frames=fr)
     full = T.lm_logits(params, cfg, hidden)
     prefix = 7
     logits, cache = T.prefill(params, cfg, toks[:, :prefix], 14,
-                              cache_dtype=torch.float32)
+                              encoder_frames=fr, cache_dtype=torch.float32)
     np.testing.assert_allclose(logits.numpy(), full[:, prefix - 1].numpy(),
                                atol=ATOL)
     for t in range(prefix, 12):

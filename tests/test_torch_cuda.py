@@ -25,6 +25,7 @@ which keeps these tolerances (``tests/test_torch_ssd.py`` emulates it).
 import numpy as np
 import pytest
 import torch
+from torch.utils._pytree import tree_map
 
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ShapeConfig
@@ -278,6 +279,16 @@ FA_CASES = [                    # b, h, kh, sq, sk, d, causal, window
     (1, 4, 2, 96, 96, 48, True, 0),       # D 48
     (2, 32, 8, 2048, 2048, 120, True, 0),  # h2o-danube-3-4b's shape
     (1, 32, 8, 4200, 4200, 120, True, 4096),  # and past its window
+    (8, 16, 16, 1500, 1500, 64, False, 0),  # whisper's encoder, 1500 frames
+    (8, 16, 16, 448, 1500, 64, False, 0),  # its training cross-attention
+    (8, 16, 16, 32, 1500, 64, False, 0),  # its prefill cross-attention
+    (8, 16, 16, 448, 448, 64, True, 0),   # its decoder self-attention
+    (8, 16, 16, 32, 32, 64, True, 0),     # its prefill self-attention
+    (2, 16, 16, 200, 200, 64, True, 0),   # its fp32 consistency prefills:
+    (2, 16, 16, 200, 1500, 64, False, 0),  # 200 and 201 tokens, self and
+    (2, 16, 16, 201, 201, 64, True, 0),   # cross attention
+    (2, 16, 16, 201, 1500, 64, False, 0),
+    (2, 4, 2, 37, 203, 64, False, 0),     # ragged Sq and Sk, no mask
 ]
 BWD_CASES = [                   # tests/test_kernels.py BWD_CASES
     (1, 4, 2, 128, 128, 64, True, 0),
@@ -293,6 +304,10 @@ BWD_CASES = [                   # tests/test_kernels.py BWD_CASES
     (1, 4, 1, 130, 130, 120, True, 64),   # D 120, window, ragged
     (1, 4, 2, 96, 96, 48, True, 0),       # D 48
     (2, 32, 8, 2048, 2048, 120, True, 0),  # h2o-danube-3-4b's shape
+    (8, 16, 16, 448, 1500, 64, False, 0),  # whisper's training cross
+    (8, 16, 16, 448, 448, 64, True, 0),   # its decoder self-attention
+    (8, 16, 16, 1500, 1500, 64, False, 0),  # whisper's encoder
+    (2, 4, 2, 37, 203, 64, False, 0),     # ragged Sq and Sk, no mask
 ]
 
 
@@ -426,6 +441,65 @@ def test_mha_fused_gradient_matches_autograd_of_plain_forward(card, heads):
                              (q, k, v))
     for a, b in zip(g1, g2):
         torch.testing.assert_close(a, b, atol=1e-3, rtol=0)
+
+
+def test_mha_fused_gradient_at_whisper_cross_shape(card):
+    """Non-causal cross-attention, Sq 448 against Sk 1500 (whisper's
+    training shape), float32: the backward gets the non-causal forward's
+    lse; atol 1e-3 as the test above."""
+    q, k, v = (t.requires_grad_(True) for t in _fa_inputs(
+        (8, 16, 16, 448, 1500, 64), 9, torch.float32, card))
+    g1 = torch.autograd.grad(
+        (fa_ops.mha_fused(q, k, v, False) ** 2).sum(), (q, k, v))
+    g2 = torch.autograd.grad(
+        (attention_ref(q, k, v, causal=False)[0] ** 2).sum(), (q, k, v))
+    for a, b in zip(g1, g2):
+        torch.testing.assert_close(a, b, atol=1e-3, rtol=0)
+
+
+def test_whisper_serving_and_training_on_the_card_match_the_cpu(card,
+                                                                tmp_path):
+    """Reduced whisper, fp32: prefill (encoder, self and cross attention
+    on the flash forward kernel) and 4 greedy decode steps, then 3
+    Trainer steps, card against CPU."""
+    cfg = get_config("whisper-medium").reduced()
+    params = T.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                           dtype=torch.float32, device="cpu")
+    rs = np.random.RandomState(0)
+    toks = torch.as_tensor(rs.randint(0, cfg.vocab_size, (2, 12)))
+    frames = torch.as_tensor(rs.randn(2, cfg.encoder_seq_len,
+                                      cfg.d_model).astype(np.float32))
+    out = {}
+    for dev in ("cpu", card):
+        p = tree_map(lambda t: t.to(dev), params)
+        before = fa.LAUNCHES
+        logits, cache = T.prefill(p, cfg, toks.to(dev), 20,
+                                  encoder_frames=frames.to(dev),
+                                  cache_dtype=torch.float32)
+        if dev == card:
+            assert fa.LAUNCHES - before == (cfg.n_encoder_layers
+                                            + 2 * cfg.n_layers)
+        seq = [logits.cpu()]
+        for t in range(12, 16):
+            nxt = logits[:, :cfg.vocab_size].argmax(-1, keepdim=True)
+            logits, cache = T.decode_step(p, cfg, cache, nxt,
+                                          torch.full((2,), t, device=dev))
+            seq.append(logits.cpu())
+        out[str(dev)] = (seq, {k: v.cpu() for k, v in cache.items()})
+    (cs, cc), (gs, gc) = out["cpu"], out["cuda"]
+    for a, b in zip(cs, gs):
+        assert torch.equal(a.argmax(-1), b.argmax(-1))
+        torch.testing.assert_close(b, a, atol=1e-4, rtol=0)
+    for k in ("k", "v", "xk", "xv"):
+        torch.testing.assert_close(gc[k], cc[k], atol=1e-4, rtol=0)
+    losses = {}
+    for dev in ("cpu", card):
+        t = Trainer(cfg, ShapeConfig("t", "train", 32, 2), TrainConfig(
+            steps=3, log_every=1, ckpt_every=0, seed=4,
+            ckpt_dir=str(tmp_path)), device=dev)
+        t.run()
+        losses[str(dev)] = [m["loss"] for m in t.metrics_log]
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], atol=1e-4)
 
 
 def test_trainer_on_the_card_matches_the_cpu(card, tmp_path):

@@ -197,14 +197,6 @@ def test_init_params_is_seeded():
     assert torch.equal(a["layers"]["ffn"]["w_up"], b["layers"]["ffn"]["w_up"])
 
 
-def test_init_params_refuses_later_slices():
-    gen = torch.Generator().manual_seed(0)
-    for arch in ("whisper-medium",):
-        with pytest.raises(NotImplementedError):
-            transformer.init_params(get_config(arch).reduced(),
-                                    generator=gen, device="cpu")
-
-
 def test_entry_points_need_the_card_unless_asked_for_cpu():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")

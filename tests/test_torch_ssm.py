@@ -274,6 +274,3 @@ def test_dense_attention_cache_waits_for_its_slice():
     with pytest.raises(NotImplementedError, match="item 14"):
         T.decode_step({}, cfg, c, torch.zeros(1, 1, dtype=torch.long),
                       torch.zeros(1), cp_mesh=object())
-    with pytest.raises(NotImplementedError, match="item 20"):
-        T.init_cache(get_config("whisper-medium").reduced(), 1, 8,
-                     device="cpu")

@@ -3,10 +3,13 @@
 Same weights (the reference's ``init_params`` converted with numpy) and
 the same numpy data go through both packages: the loss and every
 parameter's gradient of ``loss_fn`` on reduced smollm-135m and reduced
-qwen2-72b (which carries ``qkv_bias``), AdamW's update and schedule, the
-synthetic corpus, the on-disk checkpoint format, and a few ``Trainer``
-steps.  Then the port's twins of the reference's substrate tests
-(``tests/test_substrate.py``): restart bit-identical, restore into a new
+qwen2-72b (which carries ``qkv_bias``), and under each ``remat`` policy
+on reduced smollm-135m, mamba2-1.3b and whisper-medium, AdamW's update
+and schedule, the synthetic corpus, the on-disk checkpoint format, and a
+few ``Trainer`` steps, with and without gradient compression.  Then the
+port's twins of the reference's substrate tests
+(``tests/test_substrate.py``): restart bit-identical (also with
+compression's error feedback in the optimizer state), restore into a new
 trainer, straggler skip, checkpoint roundtrip, retention, fingerprint and
 atomicity.
 
@@ -16,7 +19,15 @@ results by ~1e-6 and sums of many such terms by a few times that; AdamW
 states rtol 1e-5 (elementwise float32, bias corrections by ``pow``);
 Trainer losses atol 1e-4 over 4 steps, where AdamW's m/sqrt(v) can turn a
 last-bit difference of a near-zero gradient into a different update of
-size lr.
+size lr.  With compression, each step's gradients entering it agree
+within 2e-5 and its error feedback ``ef`` within 1e-5, except at the
+elements whose int8 levels differ between the packages (the gradient sat
+on a rounding tie, and a last-bit difference rounds the other way in one
+package) or whose incoming residuals already differed.  Those differ by
+at most one quantum of their block of 256 (the scale the quantizer takes
+from the block's gradient plus residual), and they stay under 0.1% of
+every leaf (at most 5 of a leaf's 32,768 on this case); the params end
+within 2 lr a step, the most that a flipped rounding moves AdamW's update.
 """
 import json
 
@@ -29,6 +40,10 @@ import torch
 from repro.checkpoint.manager import CheckpointManager as JCheckpointManager
 from repro.configs import get_config as jget
 from repro.configs.base import ShapeConfig as JShapeConfig
+from repro.core.services.compression import \
+    CompressionConfig as JCompressionConfig
+from repro.core.services.compression import \
+    GradCompression as JGradCompression
 from repro.data.pipeline import DataConfig as JDataConfig
 from repro.data.pipeline import SyntheticCorpus as JSyntheticCorpus
 from repro.models import transformer as JT
@@ -38,6 +53,8 @@ from repro.train.loop import Trainer as JTrainer
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ShapeConfig
+from repro_torch.core.services.compression import (CompressionConfig,
+                                                   GradCompression)
 from repro_torch.data.pipeline import DataConfig, Prefetcher, SyntheticCorpus
 from repro_torch.launch import train as launch_train
 from repro_torch.models import transformer as T
@@ -135,11 +152,65 @@ def test_xent_loss_chunking_matches_reference(s_len):
     assert tn.item() == float(jn)
 
 
-@pytest.mark.parametrize("arch", ["whisper-medium"])
-def test_forward_raises_for_models_of_later_slices(arch):
-    cfg = get_config(arch).reduced()
-    with pytest.raises(NotImplementedError):
-        T.forward({}, cfg, torch.zeros(1, 4, dtype=torch.int32))
+REMAT_ARCHS = ["smollm-135m", "mamba2-1.3b", "whisper-medium"]
+REMATS = ["none", "full", "dots"]
+
+
+def _remat_case(arch):
+    jcfg = jget(arch).reduced()
+    ref = _np_tree(JT.init_params(jax.random.PRNGKey(1), jcfg,
+                                  dtype=jnp.float32))
+    rs = np.random.RandomState(7)
+    batch = {"tokens": rs.randint(0, jcfg.vocab_size,
+                                  (2, 32)).astype(np.int32)}
+    if jcfg.n_encoder_layers:
+        batch["frames"] = rs.randn(2, jcfg.encoder_seq_len,
+                                   jcfg.d_model).astype(np.float32)
+    return jcfg, get_config(arch).reduced(), ref, batch
+
+
+def _port_loss_and_grads(ref, cfg, batch, remat):
+    params = Trainer._trainable(from_reference(ref, device="cpu"))
+    loss, _ = T.loss_fn(params, cfg, {k: torch.as_tensor(v)
+                                      for k, v in batch.items()},
+                        remat=remat)
+    leaves = adamw.flatten(params)
+    return loss, dict(zip(leaves, torch.autograd.grad(
+        loss, list(leaves.values()))))
+
+
+@pytest.mark.parametrize("remat", REMATS)
+@pytest.mark.parametrize("arch", REMAT_ARCHS)
+def test_loss_fn_under_remat_matches_reference(arch, remat):
+    """``loss_fn(remat=r)``'s loss and every gradient against the JAX
+    ``loss_fn(remat=r)`` (``jax.checkpoint`` with the reference's policy)."""
+    jcfg, cfg, ref, batch = _remat_case(arch)
+    (jl, _), jg = jax.value_and_grad(
+        lambda p: JT.loss_fn(p, jcfg, {k: jnp.asarray(v)
+                                       for k, v in batch.items()},
+                             remat=remat),
+        has_aux=True)(jax.tree.map(jnp.asarray, ref))
+    loss, grads = _port_loss_and_grads(ref, cfg, batch, remat)
+    np.testing.assert_allclose(loss.item(), float(jl), atol=1e-5)
+    want = _flat_np(jg)
+    assert set(grads) == set(want)
+    for path, g in grads.items():
+        np.testing.assert_allclose(g.numpy(), want[path], atol=2e-5,
+                                   err_msg=path)
+
+
+@pytest.mark.parametrize("arch", REMAT_ARCHS)
+def test_remat_changes_no_value(arch):
+    """Recomputation moves no number: the loss and every gradient under
+    "full" and "dots" equal those of "none" bit for bit (on the CPU the
+    recomputed products are the same products)."""
+    _, cfg, ref, batch = _remat_case(arch)
+    base_loss, base = _port_loss_and_grads(ref, cfg, batch, "none")
+    for remat in ("full", "dots"):
+        loss, grads = _port_loss_and_grads(ref, cfg, batch, remat)
+        assert torch.equal(loss, base_loss), remat
+        for path, g in grads.items():
+            assert torch.equal(g, base[path]), (remat, path)
 
 
 # ============================================================== optimizer ===
@@ -343,6 +414,150 @@ def test_trainer_losses_track_the_reference_trainer(tmp_path):
                                    rtol=1e-4)
 
 
+def _compression():
+    return GradCompression(CompressionConfig(bits=8, error_feedback=True))
+
+
+class _RecordedCompression(GradCompression):
+    """The port's int8 compression with error feedback, keeping each
+    step's gradients and incoming residuals ``{path: (g, ef)}`` (flat)."""
+
+    def __init__(self):
+        super().__init__(CompressionConfig(bits=8, error_feedback=True))
+        self.steps = []
+
+    def apply(self, grads, state):
+        ef = adamw.flatten(state)
+        self.steps.append({
+            path: (g.detach().float().reshape(-1).numpy().copy(),
+                   ef[path].reshape(-1).numpy().copy())
+            for path, g in adamw.flatten(grads).items()})
+        return super().apply(grads, state)
+
+
+class _JRecordedCompression(JGradCompression):
+    """The reference's, keeping the same from inside its jitted step."""
+
+    def __init__(self):
+        super().__init__(JCompressionConfig(bits=8, error_feedback=True))
+        self.steps = []
+
+    def apply(self, grads, state):
+        g = jadamw._flatten_with_path(grads)
+        ef = jadamw._flatten_with_path(state)
+        jax.debug.callback(self._record, {
+            path: (g[path].astype(jnp.float32).reshape(-1),
+                   ef[path].reshape(-1)) for path in g})
+        return super().apply(grads, state)
+
+    def _record(self, leaves):
+        self.steps.append({path: (np.asarray(g), np.asarray(e))
+                           for path, (g, e) in leaves.items()})
+
+
+def _int8_levels(x, block=256, qmax=127):
+    """The quantizer's integer levels of x (flat float32) and the quantum
+    (scale) of each element's block: max |x| of the block / 127."""
+    n = x.size
+    xb = np.pad(x, (0, (-n) % block)).reshape(-1, block)
+    scale = np.maximum(np.abs(xb).max(1, keepdims=True) / np.float32(qmax),
+                       np.float32(1e-12))
+    levels = np.clip(np.round(xb / scale), -qmax, qmax)
+    return levels.reshape(-1)[:n], np.repeat(scale[:, 0], block)[:n]
+
+
+def _assert_compression_step_close(mine, ref, ef_mine, ef_ref):
+    """One step of compression in both packages: the gradients entering it
+    agree within 2e-5, and the residuals leaving it within 1e-5, except at
+    elements whose levels differ between the packages (a rounding tie of
+    the gradients) or whose incoming residuals already differed; those
+    stay within one quantum of their block and under 0.1% of their leaf
+    (module docstring)."""
+    assert set(mine) == set(ref) == set(ef_mine) == set(ef_ref)
+    for path, (g, e) in mine.items():
+        gj, ej = ref[path]
+        np.testing.assert_allclose(g, gj, atol=2e-5, err_msg=path)
+        levels, quantum = _int8_levels(g + e)
+        explained = (levels != _int8_levels(gj + ej)[0]) | (
+            np.abs(e - ej) > 1e-5)
+        diff = np.abs(np.asarray(ef_mine[path]).reshape(-1)
+                      - np.asarray(ef_ref[path]).reshape(-1))
+        far = diff > 1e-5
+        assert not (far & ~explained).any(), (path, np.flatnonzero(
+            far & ~explained)[:8], diff[far & ~explained][:8])
+        assert (diff[far] <= quantum[far] + 1e-5).all(), path
+        assert far.sum() <= g.size // 1000, (path, int(far.sum()), g.size)
+
+
+def test_trainer_with_compression_tracks_the_reference_trainer(tmp_path):
+    """3 steps with int8 compression and error feedback, from the same
+    weights and data: the losses track the JAX Trainer's, so do the
+    gradients entering compression and the ``ef`` state it keeps in the
+    optimizer state at every step, and so do the params at the end."""
+    jcfg, cfg = jget("smollm-135m").reduced(), get_config(
+        "smollm-135m").reduced()
+    kw = dict(steps=3, log_every=1, ckpt_every=0, seed=2)
+    jcomp = _JRecordedCompression()
+    jt = JTrainer(jcfg, JShapeConfig("t", "train", 32, 2), JTrainConfig(
+        ckpt_dir=str(tmp_path / "j"), compression=jcomp, **kw))
+    comp = _RecordedCompression()
+    pt = Trainer(cfg, ShapeConfig("t", "train", 32, 2),
+                 TrainConfig(ckpt_dir=str(tmp_path / "p"), compression=comp,
+                             **kw), device="cpu")
+    assert set(adamw.flatten(pt.opt_state["ef"])) == set(
+        adamw.flatten(pt.params))
+    pt.params = Trainer._trainable(from_reference(_np_tree(jt.params),
+                                                  device="cpu"))
+    pt.opt_state = adamw.init(pt.params)
+    pt.opt_state["ef"] = comp.init_state(pt.params)
+    jt.run()
+    pt.run()
+    assert [m["step"] for m in pt.metrics_log] == [1, 2, 3]
+    for mine, ref in zip(pt.metrics_log, jt.metrics_log):
+        np.testing.assert_allclose(mine["loss"], ref["loss"], atol=1e-4)
+    assert len(comp.steps) == len(jcomp.steps) == 3
+    want = _flat_np(jt.opt_state["ef"])
+    assert any(np.abs(w).max() > 0 for w in want.values())
+    ef_out = [({k: e for k, (_, e) in comp.steps[i].items()},
+               {k: e for k, (_, e) in jcomp.steps[i].items()})
+              for i in (1, 2)]
+    ef_out.append((adamw.flatten(pt.opt_state["ef"]), want))
+    for i, (ef_mine, ef_ref) in enumerate(ef_out):
+        _assert_compression_step_close(comp.steps[i], jcomp.steps[i],
+                                       ef_mine, ef_ref)
+    # a rounding that flips changes one element's AdamW update by at most
+    # 2 lr a step (its sign), as on the card (chip_smoke.py phase 6)
+    bound = 2 * sum(m["lr"] for m in pt.metrics_log) + 1e-6
+    params = _flat_np(jt.params)
+    for path, p in adamw.flatten(pt.params).items():
+        np.testing.assert_allclose(p.detach().numpy(), params[path],
+                                   atol=bound, err_msg=path)
+
+
+def test_trainer_restart_bit_identical_with_compression(tiny, tmp_path):
+    """An injected failure restores ``ef`` with the rest of the optimizer
+    state: the run ends bit-identical to an uninterrupted one."""
+    cfg, shape = tiny
+    kw = dict(steps=8, log_every=2, ckpt_every=4, seed=11)
+    runs = []
+    for name, fail in (("a", -1), ("b", 6)):
+        t = Trainer(cfg, shape, TrainConfig(
+            ckpt_dir=str(tmp_path / name), fail_at_step=fail,
+            compression=_compression(), **kw), device="cpu")
+        runs.append((t, t.run()))
+    (t1, r1), (t2, r2) = runs
+    assert (r1["restarts"], r2["restarts"]) == (0, 1)
+    assert r1["final_loss"] == r2["final_loss"]
+    for tree in ("params", "ef"):
+        a = adamw.flatten(t1.params if tree == "params"
+                          else t1.opt_state["ef"])
+        b = adamw.flatten(t2.params if tree == "params"
+                          else t2.opt_state["ef"])
+        assert set(a) == set(b)
+        for k in a:
+            assert torch.equal(a[k], b[k]), (tree, k)
+
+
 def test_trainer_restart_bit_identical(tiny, tmp_path):
     cfg, shape = tiny
     kw = dict(steps=8, log_every=2, ckpt_every=4, seed=11)
@@ -403,9 +618,8 @@ def test_trainer_restarts_on_a_fault_plan(tiny, tmp_path):
     assert isinstance(SimulatedFailure("x"), RuntimeError)
 
 
-@pytest.mark.parametrize("change", [
-    dict(remat="full"), dict(microbatches=2), dict(compression=object())],
-    ids=["remat", "microbatches", "compression"])
+@pytest.mark.parametrize("change", [dict(microbatches=2)],
+                         ids=["microbatches"])
 def test_trainer_levers_of_later_slices_raise(tiny, tmp_path, change):
     cfg, shape = tiny
     with pytest.raises(NotImplementedError):
@@ -428,5 +642,10 @@ def test_launcher_trains_on_the_cpu(tmp_path, capsys):
     out = json.loads(capsys.readouterr().out)
     assert out["result"]["final_step"] == 2
     assert np.isfinite(out["result"]["final_loss"])
-    with pytest.raises(NotImplementedError, match="compress"):
-        launch_train.main(["--compress", "--device", "cpu"])
+    assert launch_train.main([
+        "--reduced", "--steps", "2", "--seq-len", "16", "--batch", "2",
+        "--compress", "--remat", "dots", "--ckpt-every", "0",
+        "--ckpt-dir", str(tmp_path / "c"), "--device", "cpu"]) == 0
+    out = json.loads(capsys.readouterr().out)
+    assert out["result"]["final_step"] == 2
+    assert np.isfinite(out["result"]["final_loss"])
