@@ -15,7 +15,9 @@ mamba2-1.3b, live migration, in-place recovery, the serving gateway and
 the fleet controller on smollm-135m, the dense attention cache of
 h2o-danube-3-4b and smollm-135m, MoE serving of granite-moe-1b-a400m and
 of llama4-scout-17b-a16e (depth cut to 4 layers), the zamba2-2.7b
-hybrid, and whisper-medium's encoder-decoder, served and trained; checks
+hybrid, and whisper-medium's encoder-decoder, served and trained, the
+training of mamba2-1.3b, zamba2-2.7b and granite-moe-1b-a400m (the SSD
+backward kernel), and ``repro_torch.launch.serve``; checks
 the card against the CPU on the reduced models, times the kernels and
 profiles a decode step, a training step, a mamba prefill and a mamba
 decode step.  Every profiler trace opens with PROFILE_PAD_KERNELS empty
@@ -41,7 +43,10 @@ three times (``padded_trace``).  Phases, in order:
      also at whisper's cross shape; the
      SSD scan (bf16 on the tensor cores, float32 on FMA) on the
      reference's cases, the reduced and the main mamba shapes, a ragged S,
-     an initial state and zamba2's shape;
+     an initial state and zamba2's shape; the SSD backward (fp32 and bf16,
+     float32 FMA) against ``ref.ssd_chunked_bwd`` on those cases (G > 1,
+     ragged S, an initial state with a dfinal_state) and phase 17's
+     mamba2 and zamba2 training shapes;
   4. serving main path: 24 requests through the engine at full width, bf16,
      every paged-attention call on ``pa_decode_kernel``;
  10. h2o-danube serving: 8 requests of 256-1024 prompt tokens, 32 new
@@ -112,8 +117,10 @@ three times (``padded_trace``).  Phases, in order:
      and granite, 3 ``Trainer`` steps from the same weights (its forward,
      dq and dkv launches all on the float32 FMA kernels) of smollm, of
      whisper, and of smollm with ``remat`` "full", with "dots" and with
-     int8 gradient compression; mamba2, zamba2 and whisper prefill and 8
-     decode steps;
+     int8 gradient compression, and of mamba2, zamba2 and granite (their
+     SSD forward on the FMA kernel and its backward kernel once per mamba
+     layer a step); mamba2, zamba2 and whisper prefill and 8 decode
+     steps;
   7. kernel timing at the main paths' shapes (median, p10 and p90), with
      each kernel's bound and a PyTorch library call as yardstick where one
      computes the same function (for flash attention also SDPA's backward
@@ -122,7 +129,20 @@ three times (``padded_trace``).  Phases, in order:
      a sweep of the split length and the ring depth; the flash forward
      (with SDPA) and the SSD at zamba2's prefill shapes; the flash forward
      at whisper's encoder and cross shapes, dq and dkv at the cross shape
-     (with SDPA's forward and backward);
+     (with SDPA's forward and backward); the SSD backward at phase 17's
+     mamba2 and zamba2 training shapes (no library call computes it);
+ 17. every family trains on the card at full width (FAMILY_TRAIN):
+     mamba2-1.3b, zamba2-2.7b with ``remat="full"`` and granite-moe-1b-
+     a400m, sequence 2048, batch 4, bf16 compute over float32
+     masters, FAMILY_STEPS steps: every loss finite, SSD forward launches
+     = mamba layers x steps (twice under remat), all tensor-core, SSD
+     backward = mamba layers x steps, flash forward = attention layers x
+     steps (twice under remat), dq and dkv = attention layers x steps, all
+     wgmma, nothing else; step p50/p90 ms, tokens/s, peak GB; one more
+     mamba2 step in a padded trace held to its 48 backward launches;
+ 18. the serving launcher ``repro_torch.launch.serve.main([])`` on the
+     card at its defaults: 16 requests, every one complete, paged
+     launches = n_layers x decode steps, no other kernel;
   8. profiles: where a steady decode step (every slot full), a training
      step, a mamba prefill call and a mamba decode step spend their time
      (host wall untraced and traced, device busy time, the device's idle
@@ -130,8 +150,8 @@ three times (``padded_trace``).  Phases, in order:
 
 Each main path runs with every kernel's launch count set to 0 just before
 it and read just after it; each phase's number is printed at the start of
-its lines (phases 10-14 run after phase 4, phases 9, 15 and 16 after
-phase 5).  Any failed phase ends the script with a
+its lines (phases 10-14 run after phase 4, phases 9, 15, 16, 17 and 18
+after phase 5).  Any failed phase ends the script with a
 non-zero exit and no result line.  The line before the last is a JSON
 object describing each kernel; the last line is ``{"ok": true, "device":
 {...}}``.  Imports nothing of JAX and nothing of the JAX package.
@@ -173,7 +193,9 @@ VARIANTS = {
     "ssd": {"bfloat16": "ssd_cb_kernel, ssd_state_kernel, ssd_pass_kernel, "
                         "ssd_scan_kernel (wgmma; float32 operands as bf16 "
                         "hi + lo)",
-            "float32": "ssd_kernel (float32 FMA)"}}
+            "float32": "ssd_kernel (float32 FMA)"},
+    "ssd_bwd": {"bfloat16": "ssd_bwd_kernel (bf16 in and out, float32 FMA)",
+                "float32": "ssd_bwd_kernel (float32 FMA)"}}
 # the paged-attention kernels by name, for the decode profile
 PA_PROFILE_NAMES = sorted({n for v in VARIANTS["paged_attention"].values()
                            for n in re.findall(r"\w+_kernel", v)})
@@ -212,6 +234,38 @@ SSD_ZAMBA2, SSD_ZAMBA2_RAGGED = [(n, s, 80, 64, 1, 64, 256)
 # (tests/test_torch_ssd.py emulates it; one bf16 rounding breaks them).
 SSD_ATOL = 5e-4
 SSD_RTOL = {torch.float32: 2.0 ** -12, torch.bfloat16: 2.0 ** -8}
+# The SSD backward (no Pallas counterpart: the reference differentiates its
+# jnp scan) against ``ref.ssd_chunked_bwd``.  dx and dinit are held as the
+# forward's y and state: atol 5e-4 plus rtol 2^-12 (bf16 dx: 2^-8, one
+# rounding of the float32 sum).  ddt, dA, dB and dC are sums whose terms
+# cancel: ddt through the suffix sums of dcum, dA over batch and
+# positions, dB and dC over the heads of a group (64 or 80 at full
+# width).  Summed in float32 in another order they differ by a share of
+# the terms' size, not of the result's: at the main path's ragged shape
+# an element of dB of 0.05 moved by 7e-4, and there the float32 plain
+# version itself is up to 1.8e-5 of each tensor's largest value from the
+# same algorithm in float64.  So they are held normwise: atol 5e-4
+# plus 2^-12 of the tensor's largest |value| (plus 2^-8 of each element
+# for bf16 dB and dC, their one rounding).
+SSD_BWD_SOURCE = "src/repro_torch/csrc/ssd_bwd.cu"
+SSD_BWD_NAMES = ("dx", "ddt", "dA", "dB", "dC", "dinit")
+SSD_BWD_REPLACES = ("jax.grad of src/repro/models/ssm.py:104 (ssd_chunked); "
+                    "no Pallas kernel")
+# phase 17: every family trains on the card at full width: (arch, batch,
+# remat), sequence FAMILY_SEQ, FAMILY_STEPS steps from seeded weights, bf16
+# compute over float32 masters.  mamba2 and granite fit batch 4 without
+# remat (peaks of 69.3 and 56.9 GB on the H100 in this script); zamba2
+# (2.06 B parameters, ~33 GB of masters, gradients and AdamW) takes remat
+# "full" at batch 4 (44.6 GB; without remat batch 2 alone peaked at 62.8
+# GB).  remat "full" recomputes each hybrid cycle's body in the
+# backward, so its forward kernels launch twice a step and its backward
+# kernels once
+FAMILY_TRAIN = (("mamba2-1.3b", 4, "none"), ("zamba2-2.7b", 4, "full"),
+                ("granite-moe-1b-a400m", 4, "none"))
+FAMILY_SEQ, FAMILY_STEPS = 2048, 5
+# the SSD shapes of phase 17's mamba2 and zamba2 steps (phase 3 and 7)
+SSD_TRAIN_MAMBA2 = (FAMILY_TRAIN[0][1], FAMILY_SEQ, 64, 64, 1, 128, 256)
+SSD_TRAIN_ZAMBA2 = (FAMILY_TRAIN[1][1], FAMILY_SEQ, 80, 64, 1, 64, 256)
 MAMBA_PROMPTS = ((8, 2048), (4, 1000))    # (requests, prompt tokens)
 MAMBA_DECODE_STEPS = 64
 # decode after prefill vs prefill of one more token, full width, fp32:
@@ -1755,7 +1809,7 @@ def phase_zamba2_serving(card):
         nxt = logits[:, :cfg.vocab_size].argmax(-1, keepdim=True)
         torch.cuda.synchronize()
         pre_s = time.perf_counter() - t0
-        want = {"tc": nc * n_mamba, "fma": 0}
+        want = {"tc": nc * n_mamba, "fma": 0, "bwd": 0}
         check(_ssd_paths() == want, f"zamba2 bf16 prefill's SSD calls by "
               f"path are {_ssd_paths()}, not {want}")
         v = _variant_counts()
@@ -2337,6 +2391,7 @@ def _zero_counts():
     fab.DQ_WGMMA_LAUNCHES = fab.DQ_FMA_LAUNCHES = 0
     fab.DKV_WGMMA_LAUNCHES = fab.DKV_FMA_LAUNCHES = 0
     ssd.LAUNCHES = ssd.TC_LAUNCHES = ssd.FMA_LAUNCHES = 0
+    ssd.BWD_LAUNCHES = 0
 
 
 def _ssd_count():
@@ -2346,9 +2401,10 @@ def _ssd_count():
 
 def _ssd_paths():
     """SSD calls by path: the bf16 tensor-core kernels, the float32 FMA
-    kernel."""
+    kernel, and the backward kernel."""
     from repro_torch.kernels.ssd import ssd
-    return {"tc": ssd.TC_LAUNCHES, "fma": ssd.FMA_LAUNCHES}
+    return {"tc": ssd.TC_LAUNCHES, "fma": ssd.FMA_LAUNCHES,
+            "bwd": ssd.BWD_LAUNCHES}
 
 
 def phase_train(card):
@@ -2440,7 +2496,9 @@ def phase_train_card_vs_cpu(arch="smollm-135m", label="smollm", remat="none",
     once per attention a step (an encoder-decoder's encoder, decoder and
     cross attention), and once more per decoder attention under a remat
     policy, which recomputes the layer body in the backward; dq and dkv
-    once per attention."""
+    once per attention.  A mamba or hybrid model's SSD forward runs on the
+    float32 FMA kernel once per mamba layer a step, and its backward
+    kernel as often."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.core.services.compression import (CompressionConfig,
@@ -2461,13 +2519,16 @@ def phase_train_card_vs_cpu(arch="smollm-135m", label="smollm", remat="none",
             _zero_counts()
             t.run()
             variants = _variant_counts()
+            ssd_paths = _ssd_paths()
             runs[dev] = ([m["loss"] for m in t.metrics_log],
                          {k: v.detach().cpu() for k, v in
                           adamw.flatten(t.params).items()},
                          sum(m["lr"] for m in t.metrics_log))
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
-    dec = cfg.n_layers * (2 if cfg.n_encoder_layers else 1)
+    n_mamba = sum(k == "mamba" for k in cfg.layer_kinds())
+    dec = ((cfg.n_layers - n_mamba)
+           * (2 if cfg.n_encoder_layers else 1))
     att = cfg.n_encoder_layers + dec        # attentions a step
     fwd = 3 * (att + (dec if remat != "none" else 0))
     want = 3 * att                          # float32: the FMA kernels
@@ -2476,6 +2537,10 @@ def phase_train_card_vs_cpu(arch="smollm-135m", label="smollm", remat="none",
           f"the float32 {label} Trainer's flash launches by kernel are "
           f"{variants}, not 0 tensor-core and {fwd} forward, {want} dq and "
           f"{want} dkv FMA")
+    ssd_want = {"tc": 0, "fma": 3 * n_mamba * (2 if remat != "none" else 1),
+                "bwd": 3 * n_mamba}
+    check(ssd_paths == ssd_want, f"the float32 {label} Trainer's SSD "
+          f"launches by path are {ssd_paths}, not {ssd_want}")
     (cl, cp, lr_sum), (gl, gp, _) = runs["cpu"], runs["cuda"]
     loss_err = max(abs(a - b) for a, b in zip(cl, gl))
     p_err = max(float((cp[k] - gp[k]).abs().max()) for k in cp)
@@ -2484,7 +2549,7 @@ def phase_train_card_vs_cpu(arch="smollm-135m", label="smollm", remat="none",
           f"compression={'int8+ef' if compress else 'off'}): loss "
           f"max_abs_err={loss_err:.3e} atol=1e-4, params max_abs_err="
           f"{p_err:.3e} atol={p_tol:.3e}; card launches by kernel "
-          f"{variants}")
+          f"{variants}, SSD {ssd_paths}")
     check(loss_err <= 1e-4, f"losses differ: {cl} vs {gl}")
     check(p_err <= p_tol, f"params differ by {p_err}")
 
@@ -2672,7 +2737,8 @@ def phase_ssd_kernels(gen):
             y, st = ssd_scan(x, dt, a, bm, c, chunk=chunk, init_state=st0)
             tc = dtype == torch.bfloat16
             check(_ssd_paths() == {"tc": before["tc"] + tc,
-                                   "fma": before["fma"] + (not tc)},
+                                   "fma": before["fma"] + (not tc),
+                                   "bwd": before["bwd"]},
                   f"ssd {name} {dtype} took the wrong path")
             wy, wst = ssd_chunked(x.float(), dt, a, bm.float(), c.float(),
                                   chunk=chunk, init_state=st0)
@@ -2698,6 +2764,83 @@ def phase_ssd_kernels(gen):
             if name == "main" and dtype == torch.bfloat16:
                 main_err = max(ey, es)
             del x, dt, bm, c, y, st, wy, wst, dy, ds
+    return main_err
+
+
+def ssd_bwd_limits(want, dtype):
+    """Per gradient (dx, ddt, dA, dB, dC, dinit) the elementwise limit of
+    the kernel's error against the plain version (the comment above
+    SSD_BWD_SOURCE)."""
+    out = []
+    for nm, w in zip(SSD_BWD_NAMES, want):
+        w = w.float().abs()
+        if nm in ("dx", "dinit"):
+            rt = SSD_RTOL[dtype if nm == "dx" else torch.float32]
+            out.append(SSD_ATOL + rt * w)
+        else:
+            own = (SSD_RTOL[dtype] * w if dtype == torch.bfloat16
+                   and nm in ("dB", "dC") else 0.0)
+            out.append(SSD_ATOL + own
+                       + SSD_RTOL[torch.float32] * float(w.max()))
+    return out
+
+
+def phase_ssd_bwd_kernels(gen):
+    """The SSD backward kernel vs ``ref.ssd_chunked_bwd`` on the same
+    inputs (a random dy, and with an initial state a random dfinal_state),
+    at ``ssd_bwd_limits``; returns the largest error of the bf16 main
+    training shape's six gradients."""
+    from repro_torch.kernels.ssd.ref import ssd_chunked_bwd
+    from repro_torch.kernels.ssd.ssd import ssd_scan_bwd
+    cases = ([(f"ssd{i}", c, False) for i, c in enumerate(SSD_CASES)]
+             + [("init", SSD_CASES[1], True), ("rinit", SSD_CASES[3], True),
+                ("ragged", SSD_RAGGED, False),
+                ("raginit", SSD_RAGGED, True), ("mamba2", SSD_MAIN, False),
+                ("main", SSD_TRAIN_MAMBA2, False),
+                ("zamba2", SSD_TRAIN_ZAMBA2, False),
+                ("zragged", SSD_ZAMBA2_RAGGED, True)])
+    main_err = None
+    for name, case, init in cases:
+        chunk = case[6]
+        for dtype in (torch.float32, torch.bfloat16):
+            x, dt, a, bm, c, st0 = ssd_inputs(case, dtype, gen, init)
+            dy = torch.randn(x.shape, generator=gen, device="cuda").to(dtype)
+            dfin = (torch.randn(st0.shape, generator=gen, device="cuda")
+                    if init else None)
+            before = _ssd_paths()
+            got = ssd_scan_bwd(x, dt, a, bm, c, dy, chunk=chunk,
+                               init_state=st0, dfinal_state=dfin)
+            check(_ssd_paths() == dict(before, bwd=before["bwd"] + 1),
+                  f"ssd_bwd {name} {dtype}: not one backward launch")
+            want = ssd_chunked_bwd(x.float(), dt, a, bm.float(), c.float(),
+                                   dy.float(), chunk=chunk, init_state=st0,
+                                   dfinal_state=dfin)
+            torch.cuda.synchronize()
+            errs, excess = {}, -1.0
+            for nm, g, w, lim in zip(SSD_BWD_NAMES, got, want,
+                                     ssd_bwd_limits(want, dtype)):
+                check(bool(torch.isfinite(g).all()),
+                      f"ssd_bwd {name} {dtype}: non-finite {nm}")
+                d = (g.float() - w.float()).abs()
+                errs[nm] = float(d.max())
+                excess = max(excess, float((d - lim).max()))
+            print(f"[3] ssd_bwd {name:7s} {str(dtype):14s} B={case[0]} "
+                  f"S={case[1]} H={case[2]} P={case[3]} G={case[4]} "
+                  f"N={case[5]} L={chunk} init={init}: max_abs_err "
+                  + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+                  + f" (atol {SSD_ATOL}; dx, dinit rtol "
+                  f"{max(SSD_RTOL[dtype], SSD_RTOL[torch.float32]):g}; ddt, "
+                  f"dA, dB, dC {SSD_RTOL[torch.float32]:g} of their largest "
+                  f"|value|"
+                  + (f", dB, dC also rtol {SSD_RTOL[dtype]:g}"
+                     if dtype == torch.bfloat16 else "")
+                  + f"); worst excess over the limit {excess:.3e}")
+            check(excess <= 0, f"ssd_bwd kernel vs plain {name} {dtype}: "
+                  f"{errs}")
+            if name == "main" and dtype == torch.bfloat16:
+                main_err = max(errs.values())
+            del x, dt, bm, c, dy, got, want
+    torch.cuda.empty_cache()
     return main_err
 
 
@@ -2737,9 +2880,9 @@ def phase_mamba_serving(card):
         torch.cuda.synchronize()
         pre_s = time.perf_counter() - t0
         prefill_launches.append(_ssd_count())
-        check(_ssd_paths() == {"tc": cfg.n_layers, "fma": 0},
+        check(_ssd_paths() == {"tc": cfg.n_layers, "fma": 0, "bwd": 0},
               f"the bf16 prefill's SSD calls by path are {_ssd_paths()}, "
-              f"not {cfg.n_layers} tensor-core and 0 FMA")
+              f"not {cfg.n_layers} tensor-core, 0 FMA and 0 backward")
         _zero_counts()
         gen_toks, step_ms = [nxt], []
         for i in range(MAMBA_DECODE_STEPS):
@@ -2927,6 +3070,63 @@ def phase_ssd_timing(gen, card):
               f"{nbytes}; {flops / k_ms[0] / 1e9:.2f} "
               f"TFLOP/s) [{card}]")
         del x, dt, a, bm, c
+    return res
+
+
+def ssd_bwd_flops_bytes(case, dtype):
+    """Visible work of the SSD backward, per chunk of m real positions and
+    head: the lower triangles (m(m+1)/2 pairs) of C B^T and dy x^T and the
+    four products with them (y, g, dC and dB), and six m x P x N products
+    (the state's recomputation, y's and dC's terms from the entering state,
+    g's and dB's from dh, and dh's update).  Least traffic: x, dy, B, C, dt
+    and A read once; dx, dB, dC, ddt and dA written once."""
+    b, s, h, p, g, n, chunk = case
+    flops = 0
+    for c0 in range(0, s, chunk):
+        m = min(chunk, s - c0)
+        flops += 2 * (m * (m + 1) // 2) * (3 * n + 3 * p) + 12 * m * p * n
+    flops *= b * h
+    e = torch.finfo(dtype).bits // 8
+    nbytes = (3 * b * s * h * p * e + 4 * b * s * g * n * e
+              + 2 * b * s * h * 4 + 2 * h * 4)
+    return flops, nbytes
+
+
+def phase_ssd_bwd_timing(gen, card):
+    """The SSD backward kernel at phase 17's mamba2 and zamba2 training
+    shapes, bf16, L2 flushed: its time, its bound and its plain version's
+    time (no PyTorch call computes the SSD backward: no library
+    yardstick).  Returns {shape: entry of the kernels line}."""
+    from repro_torch.kernels.ssd import ssd as ssd_k
+    from repro_torch.kernels.ssd.ref import ssd_chunked_bwd
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    dtype, res = torch.bfloat16, {}
+    for tag, case in (("mamba2", SSD_TRAIN_MAMBA2),
+                      ("zamba2", SSD_TRAIN_ZAMBA2)):
+        x, dt, a, bm, c, _ = ssd_inputs(case, dtype, gen)
+        dy = torch.randn(x.shape, generator=gen, device="cuda").to(dtype)
+        chunk = case[6]
+        before = ssd_k.BWD_LAUNCHES
+        k_ms = time_ms(lambda: ssd_k.ssd_scan_bwd(x, dt, a, bm, c, dy,
+                                                  chunk=chunk), 5, flush)
+        ssd_k.BWD_LAUNCHES = before    # timing launches are not main-path
+        p_ms = time_ms(lambda: ssd_chunked_bwd(x, dt, a, bm, c, dy,
+                                               chunk=chunk), 2, flush)
+        flops, nbytes = ssd_bwd_flops_bytes(case, dtype)
+        t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        res[tag] = {"ms": k_ms[0], "plain_ms": p_ms[0],
+                    "bound_ms": max(t_ops, t_bytes),
+                    "bound_by": "operations" if t_ops >= t_bytes
+                    else "bytes", "library_ms": None}
+        print(f"[7] ssd_bwd {tag} {str(dtype):14s} B={case[0]} S={case[1]} "
+              f"H={case[2]} P={case[3]} G={case[4]} N={case[5]} L={chunk}: "
+              f"kernel_ms={spread(k_ms)} plain_ms={spread(p_ms)} bound_ms="
+              f"{res[tag]['bound_ms']:.4f} (flops {flops}, bytes {nbytes}; "
+              f"bound by {res[tag]['bound_by']}; "
+              f"{flops / k_ms[0] / 1e9:.2f} TFLOP/s) [{card}]")
+        del x, dt, a, bm, c, dy
+    torch.cuda.empty_cache()
     return res
 
 
@@ -3383,6 +3583,181 @@ def phase_whisper_train(card):
     return base["launches"]
 
 
+def _launch_counts():
+    """Every kernel's launches: paged, flash by variant, SSD by path."""
+    from repro_torch.kernels.paged_attention import paged_attention as pa
+    return {"paged": pa.LAUNCHES, **_variant_counts(),
+            **{f"ssd_{k}": v for k, v in _ssd_paths().items()}}
+
+
+def phase_family_train(card, arch, batch, remat, trace=False):
+    """Phase 17: ``Trainer`` on ``arch`` at full width, sequence FAMILY_SEQ,
+    ``batch`` rows, bf16 compute over float32 masters, FAMILY_STEPS steps
+    from seed 0 with ``remat``.  Every loss finite; the SSD forward
+    launches once per mamba layer a step (twice under remat), all on the
+    tensor-core kernels, the SSD backward once per mamba layer a step; the
+    flash forward once per attention layer a step (twice under remat), dq
+    and dkv once, all wgmma; nothing else.  With ``trace``, one more step
+    in a padded trace held to its SSD backward launches.  Returns the
+    launches by kernel of the kernels line."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.loop import TrainConfig, Trainer
+    cfg = get_config(arch)
+    kinds = cfg.layer_kinds()
+    n_mamba = sum(k == "mamba" for k in kinds)
+    n_attn = len(kinds) - n_mamba
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    prof = None
+    try:
+        torch.cuda.empty_cache()
+        tr = Trainer(cfg, ShapeConfig(f"chip_smoke_{arch}", "train",
+                                      FAMILY_SEQ, batch),
+                     TrainConfig(steps=FAMILY_STEPS, log_every=1,
+                                 ckpt_every=0, ckpt_dir=ckpt, seed=0,
+                                 remat=remat, compute_dtype=torch.bfloat16,
+                                 param_dtype=torch.float32,
+                                 opt=AdamWConfig(warmup_steps=5,
+                                                 total_steps=FAMILY_STEPS)),
+                     device="cuda")
+        n_params = sum(v.numel() for v in _leaves(tr.params))
+        step_fn, step_ms = tr.step_fn, []
+
+        def timed(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step_fn(*args)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        tr.step_fn = timed
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        tr.run()
+        torch.cuda.synchronize()
+        counts = _launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        losses = [m["loss"] for m in tr.metrics_log]
+        if trace:
+            from repro_torch.data.pipeline import to_device
+            batch_t = to_device(tr.corpus.batch(1000), "cuda")
+
+            def one_step():
+                tr.params, tr.opt_state, _ = step_fn(tr.params, tr.opt_state,
+                                                     batch_t)
+
+            kernels, wall, n_bwd, number = padded_trace(
+                one_step, named(r"ssd_bwd_kernel"), n_mamba,
+                f"{arch} training step")
+            kernels, busy, by_name = _profile_summary(kernels, 1)
+            total = sum(t for t, _ in by_name.values())
+            bwd_ms = sum(t for n, (t, _) in by_name.items()
+                         if "ssd_bwd_kernel" in n)
+            fwd_ms = sum(t for n, (t, _) in by_name.items()
+                         if re.search(r"ssd_(cb|state|pass|scan)_kernel", n))
+            top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+            prof = {"trace": {"number": number, "ssd_bwd_kernel": n_bwd,
+                              "want": n_mamba},
+                    "step_wall_ms_traced": wall,
+                    "device_busy_ms": busy,
+                    "device_idle_share_traced": 1 - busy / wall,
+                    "kernels": len(kernels),
+                    "ssd_bwd_ms": bwd_ms, "ssd_fwd_ms": fwd_ms,
+                    "ssd_bwd_share_of_kernel_time": bwd_ms / total,
+                    "top_kernels_ms": [{"name": n[:80], "ms": t, "calls": c}
+                                       for n, (t, c) in top]}
+            _zero_counts()
+        # nothing of this trainer may stay alive into the next one's peak
+        del tr, step_fn, timed
+        gc.collect()
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    steps = len(step_ms)
+    twice = 2 if remat != "none" else 1
+    check(steps == FAMILY_STEPS, f"{arch}: {steps} steps run")
+    check(all(math.isfinite(x) for x in losses),
+          f"{arch}: non-finite loss {losses}")
+    want = {"paged": 0,
+            "fwd_wgmma": twice * n_attn * steps, "fwd_fma": 0,
+            "dq_wgmma": n_attn * steps, "dq_fma": 0,
+            "dkv_wgmma": n_attn * steps, "dkv_fma": 0,
+            "ssd_tc": twice * n_mamba * steps, "ssd_fma": 0,
+            "ssd_bwd": n_mamba * steps}
+    check(counts == want, f"{arch} bf16 training (remat={remat}, {steps} "
+          f"steps): launches by kernel {counts}, not {want}")
+    st = np.asarray(step_ms[1:])
+    print("[17] " + json.dumps({
+        "card": card, "model": f"{arch} (random weights, fp32 masters, "
+        "bf16 compute)", "params": n_params, "seq_len": FAMILY_SEQ,
+        "batch": batch, "remat": remat, "steps": steps,
+        "mamba_layers": n_mamba, "attention_layers": n_attn,
+        "step_ms_first": step_ms[0],
+        "step_ms_p50": float(np.percentile(st, 50)),
+        "step_ms_p90": float(np.percentile(st, 90)),
+        "tokens_per_s": batch * FAMILY_SEQ / float(np.percentile(st, 50))
+        * 1e3,
+        "max_memory_allocated_gb": peak, "losses": losses,
+        "launches_by_kernel": counts, "profile": prof}))
+    torch.cuda.empty_cache()
+    return {"ssd": counts["ssd_tc"], "ssd_bwd": counts["ssd_bwd"],
+            "flash_attention_fwd": counts["fwd_wgmma"],
+            "flash_attention_dq": counts["dq_wgmma"],
+            "flash_attention_dkv": counts["dkv_wgmma"]}
+
+
+def phase_serve_launcher(card):
+    """Phase 18: ``repro_torch.launch.serve.main([])`` on the card at its
+    defaults (the reduced smollm-135m, float32, 16 requests of 16 new
+    tokens through 8 slots): every request completes with all its tokens,
+    in the vocabulary, and the paged kernel launches once per layer a
+    decode step, nothing else.  Returns its paged launches."""
+    import contextlib
+    import io
+    from repro_torch.launch import serve as launch_serve
+    engines, base = [], launch_serve.ServingEngine
+
+    class Recorded(base):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            engines.append(self)
+
+    out = io.StringIO()
+    launch_serve.ServingEngine = Recorded
+    try:
+        _zero_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = launch_serve.main([])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _launch_counts()
+    finally:
+        launch_serve.ServingEngine = base
+    stats = json.loads(out.getvalue())
+    check(rc == 0 and len(engines) == 1, f"serve launcher: exit {rc}")
+    eng = engines[0]
+    cfg = eng.cfg
+    check(stats["completed"] == 16 and len(eng.completed) == 16,
+          f"serve launcher: {stats['completed']} of 16 requests completed")
+    for r in eng.completed:
+        check(len(r.out_tokens) == 16 and all(
+            0 <= t < cfg.vocab_size for t in r.out_tokens),
+              f"serve launcher: rid {r.rid} tokens {r.out_tokens}")
+    check(stats["mmu"]["pages_used"] == 0, "serve launcher leaked pages")
+    want = dict({k: 0 for k in counts}, paged=cfg.n_layers * eng.steps)
+    check(counts == want, f"serve launcher: launches {counts}, not {want}")
+    print("[18] " + json.dumps({
+        "card": card, "model": f"{cfg.arch_id} reduced (random weights, "
+        "float32), the launcher's defaults", "wall_s": wall,
+        "decode_steps": eng.steps, "paged_launches": counts["paged"],
+        **{k: stats[k] for k in ("completed", "tokens", "tokens_per_s",
+                                 "ttft_p50_ms", "tpot_p50_ms")}}))
+    return counts["paged"]
+
+
 def phase_whisper_timing(gen, card):
     """Phase 7 at whisper's shapes, bf16, L2 flushed: the forward at the
     encoder's (8 x 16 heads, 1500 x 1500, non-causal) and the training
@@ -3540,6 +3915,7 @@ def main() -> int:
     pa_err = phase_kernels(pa, paged_attention_ref, gen)
     fa_err = phase_flash_kernels(gen)
     ssd_err = phase_ssd_kernels(gen)
+    ssd_bwd_err = phase_ssd_bwd_kernels(gen)
     pa_launches, cfg, params = phase_main_path(card)
     check(all(n == 0 for n in _flash_counts().values()),
           "the serving path launched a flash-attention kernel")
@@ -3561,6 +3937,10 @@ def main() -> int:
     whisper_prefill = phase_whisper_serving(card)
     phase_whisper_consistency(card)
     whisper_train = phase_whisper_train(card)
+    family = {arch: phase_family_train(card, arch, batch, remat,
+                                       trace=arch == "mamba2-1.3b")
+              for arch, batch, remat in FAMILY_TRAIN}
+    serve_launches = phase_serve_launcher(card)
     phase_card_vs_cpu()
     phase_card_vs_cpu("granite-moe-1b-a400m", "granite")
     phase_train_card_vs_cpu()
@@ -3568,12 +3948,16 @@ def main() -> int:
     phase_train_card_vs_cpu(label="smollm", remat="full")
     phase_train_card_vs_cpu(label="smollm", remat="dots")
     phase_train_card_vs_cpu(label="smollm", compress=True)
+    phase_train_card_vs_cpu("mamba2-1.3b", "mamba2")
+    phase_train_card_vs_cpu("zamba2-2.7b", "zamba2")
+    phase_train_card_vs_cpu("granite-moe-1b-a400m", "granite")
     phase_mamba_card_vs_cpu()
     phase_mamba_card_vs_cpu("zamba2-2.7b", "zamba2")
     phase_mamba_card_vs_cpu("whisper-medium", "whisper")
     timing = phase_timing(pa, paged_attention_ref, gen, card)
     fa_timing = phase_flash_timing(gen, card)
     ssd_timing = phase_ssd_timing(gen, card)
+    ssd_bwd_timing = phase_ssd_bwd_timing(gen, card)
     zamba2_timing = phase_zamba2_timing(gen, card)
     whisper_timing = phase_whisper_timing(gen, card)
     phase_decode_profile(cfg, params, card)
@@ -3589,17 +3973,23 @@ def main() -> int:
     by_path = {
         "paged_attention": {"serving_smollm": pa_launches,
                             "serving_granite": granite_launches,
-                            "serving_llama4": llama4_launches},
+                            "serving_llama4": llama4_launches,
+                            "serve_launcher": serve_launches},
         "flash_attention_fwd": {"train": fa_launches["flash_attention_fwd"],
                                 "zamba2_prefill": zamba2_fa},
         "flash_attention_dq": {"train": fa_launches["flash_attention_dq"]},
         "flash_attention_dkv": {"train": fa_launches["flash_attention_dkv"]},
         "ssd": {"mamba2_prefill": ssd_launches,
-                "zamba2_prefill": zamba2_ssd}}
+                "zamba2_prefill": zamba2_ssd},
+        "ssd_bwd": {}}
     for path, counts in (("whisper_prefill", whisper_prefill),
                          ("whisper_train", whisper_train)):
         for name, n in counts.items():
             by_path[name][path] = n
+    for arch, counts in family.items():     # a path only where it runs
+        for name, n in counts.items():
+            if n:
+                by_path[name][f"{arch.split('-')[0]}_train"] = n
     k_ms, p_ms, bound = timing[("main", torch.bfloat16)]
     kernels = [{
         "name": "paged_attention", "route": "cuda", "source": PA_SOURCE,
@@ -3616,6 +4006,11 @@ def main() -> int:
         "name": "ssd", "route": "cuda", "source": SSD_SOURCE,
         "replaces": SSD_REPLACES, "max_abs_err": ssd_err,
         **ssd_timing[torch.bfloat16]})
+    kernels.append({
+        "name": "ssd_bwd", "route": "cuda", "source": SSD_BWD_SOURCE,
+        "replaces": SSD_BWD_REPLACES, "max_abs_err": ssd_bwd_err,
+        **ssd_bwd_timing["mamba2"],
+        "zamba2_shape": ssd_bwd_timing["zamba2"]})
     for k in kernels:
         k["launches"] = sum(by_path[k["name"]].values())
         k["launches_by_path"] = by_path[k["name"]]

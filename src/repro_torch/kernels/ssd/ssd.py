@@ -32,6 +32,14 @@ never falls back to the plain version (``ref.py``), and it does not
 synchronise.  ``LAUNCHES`` counts its calls (one a call, whatever the
 number of CUDA kernels), ``TC_LAUNCHES`` and ``FMA_LAUNCHES`` those of
 each path.
+
+``ssd_scan_bwd`` is the scan's gradient: ``repro_torch/csrc/ssd_bwd.cu``
+(no Pallas counterpart: the reference differentiates its jnp scan), one
+block per (head, batch row) in float32 FMA for both dtypes, with the same
+shapes, strides and ragged S as the forward.  It writes per-head float32
+partials of dB and dC and per-row ones of dA, which this wrapper sums
+over the heads of each group and over the batch: no atomics, so the card
+gives the same bits from run to run.  ``BWD_LAUNCHES`` counts its calls.
 """
 from __future__ import annotations
 
@@ -45,11 +53,13 @@ from repro_torch.kernels import _build, readable
 LAUNCHES = 0
 TC_LAUNCHES = 0             # bf16: the four tensor-core kernels
 FMA_LAUNCHES = 0            # float32: ssd_kernel
+BWD_LAUNCHES = 0            # ssd_bwd_kernel
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 SHAPES = ((64, 128), (64, 64), (64, 32), (32, 16))     # (head_dim, d_state)
 CHUNKS = (32, 64, 128, 256)
 _FN = None
+_BWD_FN = None
 
 
 def _fn():
@@ -61,6 +71,17 @@ def _fn():
         fn.restype = ctypes.c_int
         _FN = fn
     return _FN
+
+
+def _bwd_fn():
+    global _BWD_FN
+    if _BWD_FN is None:
+        fn = _build.load("ssd_bwd").repro_ssd_scan_bwd
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p] + [i] * 8 + [p]
+        fn.restype = ctypes.c_int
+        _BWD_FN = fn
+    return _BWD_FN
 
 
 def workspace_sizes(b, s, h, p, g, n, chunk):
@@ -150,3 +171,59 @@ def ssd_scan(x, dt, A, Bm, C, *, chunk: int,
     if err:
         raise RuntimeError(f"repro_ssd_scan launch failed: CUDA error {err}")
     return y, st
+
+
+def ssd_scan_bwd(x, dt, A, Bm, C, dy, *, chunk: int,
+                 init_state: Optional[torch.Tensor] = None,
+                 dfinal_state: Optional[torch.Tensor] = None):
+    """The SSD scan's backward on the card.
+
+    The forward's inputs, ``dy`` (B,S,H,P) in x's dtype and
+    ``dfinal_state`` (B,H,P,N) float32 or None for zeros.  Returns (dx in
+    x's dtype, ddt float32, dA float32, dBm and dC in their dtypes, dinit
+    float32), dx, ddt and dinit contiguous."""
+    global BWD_LAUNCHES
+    name = "ssd_scan_bwd"
+    _check(x, dt, A, Bm, C, chunk, init_state)
+    if dy.device != x.device or dy.dtype != x.dtype or dy.shape != x.shape:
+        raise ValueError(f"{name}: dy must match x in device, dtype and "
+                         f"shape ({dy.device}, {dy.dtype}, "
+                         f"{tuple(dy.shape)})")
+    b, s, h, p = x.shape
+    g, n = Bm.shape[2], Bm.shape[3]
+    if dfinal_state is not None and (
+            dfinal_state.device != x.device
+            or dfinal_state.dtype != torch.float32
+            or tuple(dfinal_state.shape) != (b, h, p, n)):
+        raise ValueError(f"{name}: dfinal_state must be float32 "
+                         f"(B, H, P, N) = {(b, h, p, n)} on {x.device}")
+    x, Bm, C, dy = (readable(t) for t in (x, Bm, C, dy))
+    A = A.contiguous()
+    init = None if init_state is None else init_state.contiguous()
+    dfin = None if dfinal_state is None else dfinal_state.contiguous()
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dx = torch.empty(b, s, h, p, dtype=x.dtype, device=x.device)
+    ddt = torch.empty(b, s, h, **f32)
+    da = torch.empty(b, h, **f32)
+    db = torch.empty(b, s, h, n, **f32)
+    dc = torch.empty(b, s, h, n, **f32)
+    dinit = torch.empty(b, h, p, n, **f32)
+    hin = torch.empty(b * -(-s // chunk) * h * p * n, **f32)
+    ptrs = (ctypes.c_void_p * 15)(*(
+        None if t is None else t.data_ptr()
+        for t in (x, dt, A, Bm, C, init, dy, dfin, dx, ddt, da, db, dc,
+                  dinit, hin)))
+    vals = [v for t in (x, dt, Bm, C, dy) for v in t.stride()[:3]]
+    strides = (ctypes.c_longlong * 15)(*vals)
+    BWD_LAUNCHES += 1
+    with torch.cuda.device(x.device):
+        err = _bwd_fn()(ptrs, strides, b, s, h, g, p, n, chunk,
+                        DTYPES[x.dtype],
+                        torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"repro_ssd_scan_bwd launch failed: CUDA error "
+                           f"{err}")
+    rep = h // g
+    return (dx, ddt, da.sum(0),
+            db.view(b, s, g, rep, n).sum(3).to(Bm.dtype),
+            dc.view(b, s, g, rep, n).sum(3).to(C.dtype), dinit)

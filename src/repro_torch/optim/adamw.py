@@ -5,8 +5,9 @@ stored float32 (the master copy), the model casts weights to the
 activation dtype at use sites, and the moments are float32.  The
 reference returns new trees; here ``update`` writes the new params and
 moments into the given tensors (no second copy of the model on the card)
-and returns the same trees.  Parameter trees are nested dicts; a leaf's
-path is its keys joined by "/" (``layers/attn/wq``), as the reference's
+and returns the same trees.  Parameter trees are nested dicts and tuples
+(a hybrid model's ``slots``); a leaf's path is its keys and indices
+joined by "/" (``layers/attn/wq``, ``slots/0/wz``), as the reference's
 ``tree_flatten_with_path`` spells them, so the ``no_decay`` rule sees the
 same strings.  The step count and the bias corrections are float32
 tensors on the params' device: an update never waits for the host.
@@ -44,17 +45,30 @@ def schedule(cfg: AdamWConfig, step):
 
 
 def flatten(tree, prefix: str = "") -> Dict[str, Any]:
-    """Nested dicts -> {"a/b/c": leaf}."""
-    if isinstance(tree, dict):
+    """Nested dicts and tuples -> {"a/b/c": leaf}; a tuple's entries are
+    keyed by their index ("slots/0/wz"), as the reference's paths."""
+    if isinstance(tree, (dict, tuple)):
+        items = tree.items() if isinstance(tree, dict) else enumerate(tree)
         out = {}
-        for k, v in tree.items():
+        for k, v in items:
             out.update(flatten(v, f"{prefix}{k}/"))
         return out
     return {prefix[:-1]: tree}
 
 
+def _tuples(node):
+    """Dicts keyed "0".."n-1" back into the tuples ``flatten`` read."""
+    if not isinstance(node, dict):
+        return node
+    node = {k: _tuples(v) for k, v in node.items()}
+    if node and sorted(node) == sorted(map(str, range(len(node)))):
+        return tuple(node[str(i)] for i in range(len(node)))
+    return node
+
+
 def unflatten(flat: Dict[str, Any]):
-    """{"a/b/c": leaf} -> nested dicts."""
+    """{"a/b/c": leaf} -> nested dicts, and tuples where ``flatten`` found
+    them."""
     out: Dict[str, Any] = {}
     for path, leaf in flat.items():
         *parents, last = path.split("/")
@@ -62,7 +76,7 @@ def unflatten(flat: Dict[str, Any]):
         for p in parents:
             node = node.setdefault(p, {})
         node[last] = leaf
-    return out
+    return _tuples(out)
 
 
 def init(params) -> Dict[str, Any]:

@@ -18,8 +18,12 @@ Twin of ``repro.train.loop`` for one device:
 
 A step is ``loss_fn`` -> ``torch.autograd.grad`` -> (compression) ->
 ``adamw.update``, the update in place under ``torch.no_grad()``.  An
-encoder-decoder model's batches carry frames.  On the card every
-attention forward and backward runs the flash-attention kernels.  The
+encoder-decoder model's batches carry frames.  Every family the
+reference's Trainer takes trains here: dense, MoE (its aux loss in the
+loss), mamba2 and the zamba2 hybrid (whose ``slots`` tuple the optimizer
+and the checkpoint carry as ``slots/<i>/...``).  On the card every
+attention forward and backward runs the flash-attention kernels, and every
+mamba layer's scan the SSD kernels, forward and backward.  The
 mesh bundle and microbatching (which the reference reads only under a
 mesh) wait for the multi-device slice and raise ``NotImplementedError``.
 """
@@ -95,10 +99,6 @@ class Trainer:
             raise NotImplementedError(
                 "TrainConfig.microbatches > 1 waits for the multi-device "
                 "slice (the reference reads it only under a mesh)")
-        if len(cfg.block_pattern) != 1:
-            raise NotImplementedError(
-                f"{cfg.arch_id}: training a hybrid model waits for ROADMAP "
-                "queue 1 item 19")
         self.cfg = cfg
         self.shape = shape
         self.tcfg = tcfg

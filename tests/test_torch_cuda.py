@@ -21,6 +21,9 @@ rounding moves each decay by ~1e-4 of its value; in bf16, y at rtol 2^-8
 instead, for the one bf16 rounding of each stored y.  The bf16 SSD runs
 on the tensor cores with every float32 operand split into bf16 hi + lo,
 which keeps these tolerances (``tests/test_torch_ssd.py`` emulates it).
+The SSD backward kernel against ``ref.ssd_chunked_bwd``: dx and dinit at
+the same tolerances (bf16 dx at rtol 2^-8); ddt, dA, dB and dC, sums whose
+terms cancel, normwise at 2^-12 of their largest value (``_bwd_close``).
 """
 import numpy as np
 import pytest
@@ -42,7 +45,7 @@ from repro_torch.kernels.paged_attention import paged_attention as pa
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.kernels.ssd import ssd as ssd_k
-from repro_torch.kernels.ssd.ref import ssd_chunked
+from repro_torch.kernels.ssd.ref import ssd_chunked, ssd_chunked_bwd
 from repro_torch.models import transformer as T
 from repro_torch.models.transformer import init_params
 from repro_torch.serve import paged_model as P
@@ -520,6 +523,36 @@ def test_trainer_on_the_card_matches_the_cpu(card, tmp_path):
     np.testing.assert_allclose(runs["cuda"], runs["cpu"], atol=1e-4)
 
 
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-2.7b",
+                                  "granite-moe-1b-a400m"])
+def test_ssm_hybrid_and_moe_trainers_on_the_card_match_the_cpu(card, arch,
+                                                              tmp_path):
+    """Reduced mamba2, zamba2 and granite, fp32, 3 steps from the same
+    weights: the card (the SSD forward and backward kernels once per mamba
+    layer a step, the flash kernels once per attention layer) and the CPU
+    (the plain versions) agree, losses atol 1e-4."""
+    cfg = get_config(arch).reduced()
+    kinds = cfg.layer_kinds()
+    n_mamba = sum(k == "mamba" for k in kinds)
+    n_attn = len(kinds) - n_mamba
+    shape = ShapeConfig("t", "train", 96, 2)
+    runs = {}
+    for dev in ("cpu", card):
+        before = (ssd_k.FMA_LAUNCHES, ssd_k.BWD_LAUNCHES, fab.DQ_LAUNCHES)
+        t = Trainer(cfg, shape, TrainConfig(
+            steps=3, log_every=1, ckpt_every=0, seed=4,
+            ckpt_dir=str(tmp_path / str(dev))), device=dev)
+        t.run()
+        if dev == card:
+            assert (ssd_k.FMA_LAUNCHES - before[0],
+                    ssd_k.BWD_LAUNCHES - before[1],
+                    fab.DQ_LAUNCHES - before[2]) == (3 * n_mamba,
+                                                     3 * n_mamba,
+                                                     3 * n_attn)
+        runs[str(dev)] = [m["loss"] for m in t.metrics_log]
+    np.testing.assert_allclose(runs["cuda"], runs["cpu"], atol=1e-4)
+
+
 # =================================================================== SSD ===
 SSD_CASES = [                      # b, s, h, p, g, n, chunk
     (2, 128, 4, 64, 1, 32, 32),    # tests/test_kernels.py SSD_CASES
@@ -608,9 +641,104 @@ def test_ssd_wrapper_rejects_what_the_kernel_does_not_take(card):
         ssd_k.ssd_scan(x, dt, A.cpu(), Bm, C, chunk=32)
     with pytest.raises(ValueError, match="init_state"):
         ssd_k.ssd_scan(x, dt, A, Bm, C, chunk=32, init_state=init[:1])
-    with pytest.raises(NotImplementedError, match="item 19"):
-        ssd_ops.ssd(x.requires_grad_(True), dt, A, Bm, C, chunk=32)
+    with pytest.raises(ValueError, match="dy must match"):
+        ssd_k.ssd_scan_bwd(x, dt, A, Bm, C, x[:, :-1], chunk=32)
+    with pytest.raises(ValueError, match="dfinal_state"):
+        ssd_k.ssd_scan_bwd(x, dt, A, Bm, C, x, chunk=32,
+                           dfinal_state=init[:1])
+    with pytest.raises(ValueError, match="not built"):
+        ssd_k.ssd_scan_bwd(x, dt, A, Bm, C, x, chunk=48)
     assert ssd_k.LAUNCHES == before
+
+
+def test_ssd_gradient_launches_the_backward_kernel_once(card):
+    """A CUDA input that needs a gradient: one forward launch, one
+    backward launch, and the plain backward's gradients."""
+    x, dt, A, Bm, C, init = _ssd_inputs(SSD_CASES[3], 2, torch.float32,
+                                        card)
+    ins = [t.clone().requires_grad_(True) for t in (x, dt, A, Bm, C, init)]
+    before = ssd_k.LAUNCHES, ssd_k.BWD_LAUNCHES
+    y, st = ssd_ops.ssd(*ins[:5], chunk=32, init_state=ins[5])
+    w = torch.randn_like(y), torch.randn_like(st)
+    got = torch.autograd.grad((y * w[0]).sum() + (st * w[1]).sum(), ins)
+    assert (ssd_k.LAUNCHES, ssd_k.BWD_LAUNCHES) == (before[0] + 1,
+                                                   before[1] + 1)
+    want = ssd_chunked_bwd(x, dt, A, Bm, C, w[0], chunk=32,
+                           init_state=init, dfinal_state=w[1])
+    torch.cuda.synchronize()
+    _bwd_close(got, want, torch.float32)
+
+
+def _bwd_close(got, want, dtype):
+    """dx and dinit as the forward's y and state: atol 5e-4 plus rtol
+    2^-12 (bf16 dx: 2^-8, one rounding of the float32 sum).  ddt, dA, dB
+    and dC are sums whose terms cancel (through dcum's suffix sums, over
+    batch and positions, over a group's heads): float32 in another order
+    moves them by a share of the terms' size, so they are held normwise,
+    atol 5e-4 plus 2^-12 of the tensor's largest |value| (bf16 dB and dC
+    also 2^-8 of each element)."""
+    bf16 = dtype == torch.bfloat16
+    for i, (a, b) in enumerate(zip(got, want)):
+        a, b = a.float(), b.float()
+        if i in (0, 5):
+            torch.testing.assert_close(
+                a, b, atol=5e-4, rtol=2.0 ** -8 if bf16 and i == 0
+                else 2.0 ** -12)
+        else:
+            lim = (5e-4 + 2.0 ** -12 * b.abs().max()
+                   + (2.0 ** -8 * b.abs() if bf16 and i in (3, 4) else 0.0))
+            assert bool(((a - b).abs() <= lim).all()), (i, (a - b).abs().max())
+
+
+@pytest.mark.parametrize("with_init", [False, True],
+                         ids=["zeros", "init_dfinal"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", SSD_CASES, ids=SSD_IDS)
+def test_ssd_bwd_kernel_matches_plain_version(card, case, dtype, with_init):
+    dtype = getattr(torch, dtype)
+    x, dt, A, Bm, C, init = _ssd_inputs(case, 8, dtype, card)
+    rs = np.random.RandomState(9)
+    dy = torch.tensor(rs.randn(*x.shape).astype(np.float32),
+                      device=card).to(dtype)
+    dfin = (torch.tensor(rs.randn(*init.shape).astype(np.float32),
+                         device=card) if with_init else None)
+    init = init if with_init else None
+    before = ssd_k.BWD_LAUNCHES
+    got = ssd_k.ssd_scan_bwd(x, dt, A, Bm, C, dy, chunk=case[-1],
+                             init_state=init, dfinal_state=dfin)
+    assert ssd_k.BWD_LAUNCHES == before + 1
+    want = ssd_chunked_bwd(x.float(), dt, A, Bm.float(), C.float(),
+                           dy.float(), chunk=case[-1], init_state=init,
+                           dfinal_state=dfin)
+    torch.cuda.synchronize()
+    assert [t.dtype for t in got] == [dtype, torch.float32, torch.float32,
+                                      dtype, dtype, torch.float32]
+    _bwd_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_bwd_kernel_reads_the_model_layout_through_strides(card, dtype):
+    """x, B and C as views of one tensor and dt transposed, as
+    ``mamba_apply`` hands them over: the same gradients as contiguous
+    copies."""
+    b, s, h, p, g, n, chunk = SSD_CASES[3]
+    rs = np.random.RandomState(5)
+    dtype = getattr(torch, dtype)
+    xbc = torch.tensor(rs.randn(b, s, h * p + 2 * g * n).astype(np.float32),
+                       device=card).to(dtype)
+    xp, Bp, Cp = torch.split(xbc, [h * p, g * n, g * n], dim=-1)
+    x, Bm, C = (xp.reshape(b, s, h, p), Bp.reshape(b, s, g, n),
+                Cp.reshape(b, s, g, n))
+    dt = torch.tensor(np.logaddexp(rs.randn(b, h, s), 0.0).astype(
+        np.float32), device=card).transpose(1, 2)
+    A = -torch.rand(h, device=card) - 0.1
+    dy = torch.randn(b, s, h, p, device=card).to(dtype)
+    got = ssd_k.ssd_scan_bwd(x, dt, A, Bm, C, dy, chunk=chunk)
+    want = ssd_k.ssd_scan_bwd(*(t.contiguous() for t in (x, dt, A, Bm, C,
+                                                         dy)), chunk=chunk)
+    torch.cuda.synchronize()
+    for a, w in zip(got, want):
+        assert torch.equal(a, w)
 
 
 def test_mamba_serving_on_the_card_matches_the_cpu(card):

@@ -398,7 +398,8 @@ def test_mlp_equals_reference_on_carried_weights():
 _COPIED = ["core/interfaces.py", "core/credits.py", "core/health.py",
            "core/scheduler.py", "core/port.py", "core/bitstream.py",
            "core/cthread.py", "core/services/sniffer.py",
-           "serve/gateway.py", "fleet/__init__.py", "fleet/controller.py"]
+           "serve/gateway.py", "fleet/__init__.py", "fleet/controller.py",
+           "telemetry/hlo_cost.py"]
 _SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
 _IMPORT = re.compile(r"^\s*(from|import)\s")
 

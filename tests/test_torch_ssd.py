@@ -8,7 +8,12 @@ CPU tensor) and through the reference's ``ssd_sequential``,
 in interpret mode, on ``SSD_CASES`` of ``tests/test_kernels.py`` (grouped
 B/C with G 1, 2 and 4, a ragged S, chunks 32 to 128).  Then the
 chunk-invariance property and the decode continuation, as the reference's
-kernel tests state them, on the port.
+kernel tests state them, on the port.  The backward: ``ssd_chunked_bwd``
+against ``jax.grad`` of the reference's ``ssd_chunked`` (chunks 32 to
+128, ragged S, G 1 and 2, with and without an initial state and a
+dfinal_state), against autograd of the token-by-token recurrence where
+the reference's gradient overflows, and ``ops.ssd``'s autograd Function
+against autograd of ``ssd_chunked``.
 
 Tolerance: atol 5e-4 on y and the state, the reference's kernel tests'
 own: the chunked and sequential forms sum the same float32 terms in other
@@ -32,7 +37,9 @@ from repro.kernels.ssd.ref import ssd_sequential as jssd_sequential
 from repro.kernels.ssd.ssd import ssd_chunked_pallas
 from repro.models.ssm import ssd_chunked as jssd_chunked
 from repro_torch.kernels.ssd import ops
-from repro_torch.kernels.ssd.ref import ssd_chunked, ssd_sequential
+from repro_torch.kernels.ssd import ssd as ssd_k
+from repro_torch.kernels.ssd.ref import (ssd_chunked, ssd_chunked_bwd,
+                                        ssd_sequential)
 from repro_torch.kernels.ssd.ssd import ssd_scan
 from repro_torch.models.ssm import ssd_decode
 
@@ -160,12 +167,120 @@ def test_kernel_wrapper_refuses_cpu_tensors():
 
 
 @pytest.mark.cuda
-def test_ops_ssd_refuses_a_gradient_on_the_card():
+def test_ops_ssd_gradient_on_the_card_launches_the_backward_kernel():
     if not torch.cuda.is_available():
         pytest.skip("needs the CUDA card: the kernel has no CPU mode")
     x, dt, A, Bm, C = (t.cuda() for t in _t(*_inputs(1, 64, 2, 32, 1, 16)))
-    with pytest.raises(NotImplementedError, match="item 19"):
-        ops.ssd(x.requires_grad_(True), dt, A, Bm, C, chunk=32)
+    before = ssd_k.BWD_LAUNCHES
+    y, _ = ops.ssd(x.requires_grad_(True), dt, A, Bm, C, chunk=32)
+    y.sum().backward()
+    assert ssd_k.BWD_LAUNCHES == before + 1
+    assert x.grad.shape == x.shape
+
+
+# ---------------------------------------------------------------- backward
+BWD_CASES = [                       # b, s, h, p, g, n, chunk
+    (2, 128, 4, 32, 1, 16, 32),
+    (1, 200, 8, 16, 2, 8, 64),      # ragged S, G 2
+    (2, 77, 4, 32, 2, 16, 32),      # ragged S inside the first chunk's pad
+    (1, 256, 4, 16, 1, 8, 128),
+]
+BWD_IDS = [f"bwd{i}" for i in range(len(BWD_CASES))]
+
+
+def _bwd_inputs(b, s, h, p, g, n, seed):
+    """The forward's inputs with dt in mamba2's own range (its dt_bias
+    spans softplus 1e-3 to 1e-1; here 0.1 x softplus of a normal), a dy
+    and a dfinal_state.  Within a chunk of 128 the decays' exponents stay
+    far below float32's exp overflow at 88, so ``jax.grad`` of the
+    reference's scan, whose masked upper triangle holds exp of positive
+    sums (0 x inf is NaN in its gradient), is finite; the port's backward
+    masks before the exp (``test_ssd_chunked_bwd_stays_finite...``)."""
+    x, dt, A, Bm, C = _inputs(b, s, h, p, g, n, seed=seed)
+    rs = np.random.RandomState(seed + 1)
+    return (x, (0.1 * dt).astype(np.float32), A, Bm, C,
+            rs.randn(b, h, p, n).astype(np.float32),
+            rs.randn(b, s, h, p).astype(np.float32),
+            rs.randn(b, h, p, n).astype(np.float32))
+
+
+@pytest.mark.parametrize("with_init", [False, True],
+                         ids=["zeros", "init_dfinal"])
+@pytest.mark.parametrize("case", BWD_CASES, ids=BWD_IDS)
+def test_ssd_chunked_bwd_matches_jax_grad(case, with_init):
+    """Every gradient of the plain backward against ``jax.grad`` of the
+    reference's ``ssd_chunked`` on the same numpy inputs, atol 5e-4."""
+    b, s, h, p, g, n, chunk = case
+    x, dt, A, Bm, C, init, dy, dfin = _bwd_inputs(b, s, h, p, g, n, seed=3)
+
+    def loss(x, dt, A, Bm, C, init):
+        y, fin = jssd_chunked(x, dt, A, Bm, C, chunk=chunk,
+                              init_state=init if with_init else None)
+        return jnp.sum(y * dy) + (jnp.sum(fin * dfin) if with_init else 0.0)
+
+    want = jax.grad(loss, argnums=tuple(range(6)))(*_j(x, dt, A, Bm, C,
+                                                       init))
+    got = ssd_chunked_bwd(*_t(x, dt, A, Bm, C, dy), chunk=chunk,
+                          init_state=torch.from_numpy(init) if with_init
+                          else None,
+                          dfinal_state=torch.from_numpy(dfin) if with_init
+                          else None)
+    assert [t.dtype for t in got] == [torch.float32] * 6
+    for mine, ref in zip(got[:5] + (got[5] if with_init else None,),
+                         want):
+        if mine is not None:
+            _close(mine, ref)
+
+
+def test_ssd_chunked_bwd_keeps_the_input_dtypes():
+    x, dt, A, Bm, C, _, dy, _ = _bwd_inputs(1, 40, 2, 16, 1, 8, seed=4)
+    bf = [torch.from_numpy(a).bfloat16() for a in (x, Bm, C, dy)]
+    got = ssd_chunked_bwd(bf[0], torch.from_numpy(dt), torch.from_numpy(A),
+                          bf[1], bf[2], bf[3], chunk=32)
+    assert [t.dtype for t in got] == [torch.bfloat16, torch.float32,
+                                      torch.float32, torch.bfloat16,
+                                      torch.bfloat16, torch.float32]
+
+
+def test_ssd_chunked_bwd_stays_finite_where_the_reference_overflows():
+    """dt of softplus(normal), chunk 64: some decays' masked exponents pass
+    88, where the reference's gradient turns NaN.  The port's backward
+    masks before the exp and equals autograd of the token-by-token
+    recurrence (whose decays are each at most 1), atol 5e-4."""
+    b, s, h, p, g, n = 1, 200, 8, 16, 2, 8
+    x, dt, A, Bm, C = _t(*_inputs(b, s, h, p, g, n, seed=4))
+    dy = torch.from_numpy(np.random.RandomState(5).randn(b, s, h, p)
+                          .astype(np.float32))
+    got = ssd_chunked_bwd(x, dt, A, Bm, C, dy, chunk=64)
+    ins = [t.clone().requires_grad_(True) for t in (x, dt, A, Bm, C)]
+    y, _ = ssd_sequential(*ins)
+    want = torch.autograd.grad((y * dy).sum(), ins)
+    for mine, ref in zip(got, want):
+        assert bool(torch.isfinite(mine).all())
+        _close(mine, ref)
+
+
+def test_ops_ssd_autograd_matches_autograd_of_chunked():
+    """The autograd Function on the CPU (``ssd_chunked`` forward,
+    ``ssd_chunked_bwd`` backward) against torch.autograd of
+    ``ssd_chunked``, with an initial state and both outputs used, on
+    strided views of one tensor as ``mamba_apply`` passes them."""
+    b, s, h, p, g, n, chunk = 2, 77, 4, 32, 2, 16, 32
+    x, dt, A, Bm, C, init, dy, dfin = (torch.from_numpy(a) for a in
+                                       _bwd_inputs(b, s, h, p, g, n, 6))
+    xbc = torch.cat([x.reshape(b, s, -1), Bm.reshape(b, s, -1),
+                     C.reshape(b, s, -1)], dim=-1)
+    grads = []
+    for fn in (ops.ssd, ssd_chunked):
+        leaf = [t.clone().requires_grad_(True) for t in (xbc, dt, A, init)]
+        xp, bp, cp = torch.split(leaf[0], [h * p, g * n, g * n], dim=-1)
+        y, fin = fn(xp.reshape(b, s, h, p), leaf[1], leaf[2],
+                    bp.reshape(b, s, g, n), cp.reshape(b, s, g, n),
+                    chunk=chunk, init_state=leaf[3])
+        grads.append(torch.autograd.grad(
+            (y * dy).sum() + (fin * dfin).sum(), leaf))
+    for mine, ref in zip(*grads):
+        _close(mine, ref)
 
 
 def _bf16(v):

@@ -627,11 +627,67 @@ def test_trainer_levers_of_later_slices_raise(tiny, tmp_path, change):
                 device="cpu")
 
 
-def test_trainer_refuses_the_hybrid_until_its_slice(tmp_path):
+def test_trainer_steps_the_hybrid_and_restarts_bit_identical(tmp_path):
+    """Reduced zamba2: the ``slots`` tuple and ``shared_attn`` go through
+    ``adamw.flatten`` and the checkpoint and come back the same tree, and a
+    run with an injected failure ends bit-identical to an uninterrupted
+    one."""
     cfg = get_config("zamba2-2.7b").reduced()
-    with pytest.raises(NotImplementedError, match="item 19"):
-        Trainer(cfg, ShapeConfig("t", "train", 32, 2),
-                TrainConfig(ckpt_dir=str(tmp_path)), device="cpu")
+    shape = ShapeConfig("t", "train", 32, 2)
+    kw = dict(steps=4, log_every=1, ckpt_every=2, seed=3)
+    runs = []
+    for name, fail in (("a", -1), ("b", 3)):
+        t = Trainer(cfg, shape, TrainConfig(ckpt_dir=str(tmp_path / name),
+                                            fail_at_step=fail, **kw),
+                    device="cpu")
+        runs.append((t, t.run()))
+    (t1, r1), (t2, r2) = runs
+    assert (r1["restarts"], r2["restarts"]) == (0, 1)
+    assert np.isfinite(r1["final_loss"])
+    assert r1["final_loss"] == r2["final_loss"]
+    assert isinstance(t1.params["slots"], tuple)
+    assert len(t1.params["slots"]) == sum(
+        k != "shared_attn" for k in cfg.block_pattern)
+    assert "shared_attn" in t1.params
+    for tree in ("params", "m", "v"):
+        a, b = ((t.params if tree == "params" else t.opt_state[tree])
+                for t in (t1, t2))
+        a, b = adamw.flatten(a), adamw.flatten(b)
+        assert list(a) == list(b)
+        for k in a:
+            assert torch.equal(a[k], b[k]), (tree, k)
+    back = adamw.unflatten(adamw.flatten(t1.params))
+    assert isinstance(back["slots"], tuple)
+    assert list(adamw.flatten(back)) == list(adamw.flatten(t1.params))
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-2.7b",
+                                  "granite-moe-1b-a400m"])
+def test_ssm_hybrid_and_moe_trainer_losses_track_the_reference(arch,
+                                                               tmp_path):
+    """3 steps from the same weights and data: the port's Trainer on
+    reduced mamba2 (the SSD scan's backward), the zamba2 hybrid and
+    granite's MoE (its aux loss in the loss) tracks the JAX Trainer's
+    losses, learning rates and gradient norms, as
+    ``test_trainer_losses_track_the_reference_trainer``."""
+    jcfg, cfg = jget(arch).reduced(), get_config(arch).reduced()
+    kw = dict(steps=3, log_every=1, ckpt_every=0, seed=2)
+    jt = JTrainer(jcfg, JShapeConfig("t", "train", 32, 2),
+                  JTrainConfig(ckpt_dir=str(tmp_path / "j"), **kw))
+    pt = Trainer(cfg, ShapeConfig("t", "train", 32, 2),
+                 TrainConfig(ckpt_dir=str(tmp_path / "p"), **kw),
+                 device="cpu")
+    pt.params = Trainer._trainable(from_reference(_np_tree(jt.params),
+                                                  device="cpu"))
+    pt.opt_state = adamw.init(pt.params)
+    jt.run()
+    pt.run()
+    assert [m["step"] for m in pt.metrics_log] == [1, 2, 3]
+    for mine, ref in zip(pt.metrics_log, jt.metrics_log):
+        np.testing.assert_allclose(mine["loss"], ref["loss"], atol=1e-4)
+        np.testing.assert_allclose(mine["lr"], ref["lr"], rtol=1e-6)
+        np.testing.assert_allclose(mine["grad_norm"], ref["grad_norm"],
+                                   rtol=1e-4)
 
 
 def test_launcher_trains_on_the_cpu(tmp_path, capsys):
