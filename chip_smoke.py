@@ -43,10 +43,10 @@ three times (``padded_trace``).  Phases, in order:
      also at whisper's cross shape; the
      SSD scan (bf16 on the tensor cores, float32 on FMA) on the
      reference's cases, the reduced and the main mamba shapes, a ragged S,
-     an initial state and zamba2's shape; the SSD backward (fp32 and bf16,
-     float32 FMA) against ``ref.ssd_chunked_bwd`` on those cases (G > 1,
-     ragged S, an initial state with a dfinal_state) and phase 17's
-     mamba2 and zamba2 training shapes;
+     an initial state and zamba2's shape; the SSD backward (bf16 on the
+     tensor cores, float32 on FMA) against ``ref.ssd_chunked_bwd`` on
+     those cases (G > 1, ragged S, an initial state with a dfinal_state)
+     and phase 17's mamba2 and zamba2 training shapes;
   4. serving main path: 24 requests through the engine at full width, bf16,
      every paged-attention call on ``pa_decode_kernel``;
  10. h2o-danube serving: 8 requests of 256-1024 prompt tokens, 32 new
@@ -118,9 +118,9 @@ three times (``padded_trace``).  Phases, in order:
      dq and dkv launches all on the float32 FMA kernels) of smollm, of
      whisper, and of smollm with ``remat`` "full", with "dots" and with
      int8 gradient compression, and of mamba2, zamba2 and granite (their
-     SSD forward on the FMA kernel and its backward kernel once per mamba
-     layer a step); mamba2, zamba2 and whisper prefill and 8 decode
-     steps;
+     SSD forward on the FMA kernel and its float32 FMA backward kernel
+     once per mamba layer a step); mamba2, zamba2 and whisper prefill
+     and 8 decode steps;
   7. kernel timing at the main paths' shapes (median, p10 and p90), with
      each kernel's bound and a PyTorch library call as yardstick where one
      computes the same function (for flash attention also SDPA's backward
@@ -130,16 +130,20 @@ three times (``padded_trace``).  Phases, in order:
      (with SDPA) and the SSD at zamba2's prefill shapes; the flash forward
      at whisper's encoder and cross shapes, dq and dkv at the cross shape
      (with SDPA's forward and backward); the SSD backward at phase 17's
-     mamba2 and zamba2 training shapes (no library call computes it);
+     mamba2 and zamba2 training shapes, bf16 (the tensor-core kernels),
+     and at mamba2's in float32 (the FMA kernel; no library call
+     computes it);
  17. every family trains on the card at full width (FAMILY_TRAIN):
      mamba2-1.3b, zamba2-2.7b with ``remat="full"`` and granite-moe-1b-
      a400m, sequence 2048, batch 4, bf16 compute over float32
      masters, FAMILY_STEPS steps: every loss finite, SSD forward launches
      = mamba layers x steps (twice under remat), all tensor-core, SSD
-     backward = mamba layers x steps, flash forward = attention layers x
-     steps (twice under remat), dq and dkv = attention layers x steps, all
-     wgmma, nothing else; step p50/p90 ms, tokens/s, peak GB; one more
-     mamba2 step in a padded trace held to its 48 backward launches;
+     backward = mamba layers x steps, all tensor-core, flash forward =
+     attention layers x steps (twice under remat), dq and dkv =
+     attention layers x steps, all wgmma, nothing else; step p50/p90
+     ms, tokens/s, peak GB; one more mamba2 step in a padded trace held
+     to each backward kernel's 48 launches by name (and 96 of the
+     forward's kernels that it reuses);
  18. the serving launcher ``repro_torch.launch.serve.main([])`` on the
      card at its defaults: 16 requests, every one complete, paged
      launches = n_layers x decode steps, no other kernel;
@@ -194,8 +198,20 @@ VARIANTS = {
                         "ssd_scan_kernel (wgmma; float32 operands as bf16 "
                         "hi + lo)",
             "float32": "ssd_kernel (float32 FMA)"},
-    "ssd_bwd": {"bfloat16": "ssd_bwd_kernel (bf16 in and out, float32 FMA)",
+    "ssd_bwd": {"bfloat16": "ssd_dstate_kernel, ssd_dpass_kernel, "
+                            "ssd_bwd_key_kernel, ssd_bwd_query_kernel, "
+                            "ssd_dcum_kernel (wgmma, chunk-parallel; the "
+                            "decayed scores as bf16 hi + mid + lo, other "
+                            "float32 operands hi + lo), after ssd.cu's "
+                            "ssd_cb_kernel, ssd_state_kernel, "
+                            "ssd_pass_kernel",
                 "float32": "ssd_bwd_kernel (float32 FMA)"}}
+# the bf16 backward's own kernels, each launched once a call
+SSD_BWD_TC_NAMES = ("ssd_dstate_kernel", "ssd_dpass_kernel",
+                    "ssd_bwd_key_kernel", "ssd_bwd_query_kernel",
+                    "ssd_dcum_kernel")
+# the forward's kernels that the bf16 backward launches again, once a call
+SSD_REBUILD_NAMES = ("ssd_cb_kernel", "ssd_state_kernel", "ssd_pass_kernel")
 # the paged-attention kernels by name, for the decode profile
 PA_PROFILE_NAMES = sorted({n for v in VARIANTS["paged_attention"].values()
                            for n in re.findall(r"\w+_kernel", v)})
@@ -1809,7 +1825,8 @@ def phase_zamba2_serving(card):
         nxt = logits[:, :cfg.vocab_size].argmax(-1, keepdim=True)
         torch.cuda.synchronize()
         pre_s = time.perf_counter() - t0
-        want = {"tc": nc * n_mamba, "fma": 0, "bwd": 0}
+        want = {"tc": nc * n_mamba, "fma": 0, "bwd": 0, "bwd_tc": 0,
+                "bwd_fma": 0}
         check(_ssd_paths() == want, f"zamba2 bf16 prefill's SSD calls by "
               f"path are {_ssd_paths()}, not {want}")
         v = _variant_counts()
@@ -2391,7 +2408,7 @@ def _zero_counts():
     fab.DQ_WGMMA_LAUNCHES = fab.DQ_FMA_LAUNCHES = 0
     fab.DKV_WGMMA_LAUNCHES = fab.DKV_FMA_LAUNCHES = 0
     ssd.LAUNCHES = ssd.TC_LAUNCHES = ssd.FMA_LAUNCHES = 0
-    ssd.BWD_LAUNCHES = 0
+    ssd.BWD_LAUNCHES = ssd.BWD_TC_LAUNCHES = ssd.BWD_FMA_LAUNCHES = 0
 
 
 def _ssd_count():
@@ -2401,10 +2418,12 @@ def _ssd_count():
 
 def _ssd_paths():
     """SSD calls by path: the bf16 tensor-core kernels, the float32 FMA
-    kernel, and the backward kernel."""
+    kernel, and the backward, in all and by path (bf16: tensor cores,
+    float32: FMA)."""
     from repro_torch.kernels.ssd import ssd
     return {"tc": ssd.TC_LAUNCHES, "fma": ssd.FMA_LAUNCHES,
-            "bwd": ssd.BWD_LAUNCHES}
+            "bwd": ssd.BWD_LAUNCHES, "bwd_tc": ssd.BWD_TC_LAUNCHES,
+            "bwd_fma": ssd.BWD_FMA_LAUNCHES}
 
 
 def phase_train(card):
@@ -2538,7 +2557,7 @@ def phase_train_card_vs_cpu(arch="smollm-135m", label="smollm", remat="none",
           f"{variants}, not 0 tensor-core and {fwd} forward, {want} dq and "
           f"{want} dkv FMA")
     ssd_want = {"tc": 0, "fma": 3 * n_mamba * (2 if remat != "none" else 1),
-                "bwd": 3 * n_mamba}
+                "bwd": 3 * n_mamba, "bwd_tc": 0, "bwd_fma": 3 * n_mamba}
     check(ssd_paths == ssd_want, f"the float32 {label} Trainer's SSD "
           f"launches by path are {ssd_paths}, not {ssd_want}")
     (cl, cp, lr_sum), (gl, gp, _) = runs["cpu"], runs["cuda"]
@@ -2736,9 +2755,8 @@ def phase_ssd_kernels(gen):
             before = _ssd_paths()
             y, st = ssd_scan(x, dt, a, bm, c, chunk=chunk, init_state=st0)
             tc = dtype == torch.bfloat16
-            check(_ssd_paths() == {"tc": before["tc"] + tc,
-                                   "fma": before["fma"] + (not tc),
-                                   "bwd": before["bwd"]},
+            check(_ssd_paths() == dict(before, tc=before["tc"] + tc,
+                                       fma=before["fma"] + (not tc)),
                   f"ssd {name} {dtype} took the wrong path")
             wy, wst = ssd_chunked(x.float(), dt, a, bm.float(), c.float(),
                                   chunk=chunk, init_state=st0)
@@ -2810,8 +2828,12 @@ def phase_ssd_bwd_kernels(gen):
             before = _ssd_paths()
             got = ssd_scan_bwd(x, dt, a, bm, c, dy, chunk=chunk,
                                init_state=st0, dfinal_state=dfin)
-            check(_ssd_paths() == dict(before, bwd=before["bwd"] + 1),
-                  f"ssd_bwd {name} {dtype}: not one backward launch")
+            tc = dtype == torch.bfloat16
+            check(_ssd_paths() == dict(before, bwd=before["bwd"] + 1,
+                                       bwd_tc=before["bwd_tc"] + tc,
+                                       bwd_fma=before["bwd_fma"] + (not tc)),
+                  f"ssd_bwd {name} {dtype}: not one backward launch on "
+                  f"its dtype's path")
             want = ssd_chunked_bwd(x.float(), dt, a, bm.float(), c.float(),
                                    dy.float(), chunk=chunk, init_state=st0,
                                    dfinal_state=dfin)
@@ -2880,7 +2902,8 @@ def phase_mamba_serving(card):
         torch.cuda.synchronize()
         pre_s = time.perf_counter() - t0
         prefill_launches.append(_ssd_count())
-        check(_ssd_paths() == {"tc": cfg.n_layers, "fma": 0, "bwd": 0},
+        check(_ssd_paths() == {"tc": cfg.n_layers, "fma": 0, "bwd": 0,
+                               "bwd_tc": 0, "bwd_fma": 0},
               f"the bf16 prefill's SSD calls by path are {_ssd_paths()}, "
               f"not {cfg.n_layers} tensor-core, 0 FMA and 0 backward")
         _zero_counts()
@@ -3093,23 +3116,29 @@ def ssd_bwd_flops_bytes(case, dtype):
 
 
 def phase_ssd_bwd_timing(gen, card):
-    """The SSD backward kernel at phase 17's mamba2 and zamba2 training
-    shapes, bf16, L2 flushed: its time, its bound and its plain version's
-    time (no PyTorch call computes the SSD backward: no library
-    yardstick).  Returns {shape: entry of the kernels line}."""
+    """The SSD backward at phase 17's mamba2 and zamba2 training shapes,
+    bf16 (the tensor-core kernels), and at mamba2's in float32 (the FMA
+    kernel), L2 flushed: its time, its bound and its plain version's time
+    (no PyTorch call computes the SSD backward: no library yardstick).
+    Returns {tag: entry of the kernels line}."""
     from repro_torch.kernels.ssd import ssd as ssd_k
     from repro_torch.kernels.ssd.ref import ssd_chunked_bwd
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
-    dtype, res = torch.bfloat16, {}
-    for tag, case in (("mamba2", SSD_TRAIN_MAMBA2),
-                      ("zamba2", SSD_TRAIN_ZAMBA2)):
+    res = {}
+    for tag, case, dtype in (("mamba2", SSD_TRAIN_MAMBA2, torch.bfloat16),
+                             ("zamba2", SSD_TRAIN_ZAMBA2, torch.bfloat16),
+                             ("mamba2_float32", SSD_TRAIN_MAMBA2,
+                              torch.float32)):
         x, dt, a, bm, c, _ = ssd_inputs(case, dtype, gen)
         dy = torch.randn(x.shape, generator=gen, device="cuda").to(dtype)
         chunk = case[6]
-        before = ssd_k.BWD_LAUNCHES
+        before = (ssd_k.BWD_LAUNCHES, ssd_k.BWD_TC_LAUNCHES,
+                  ssd_k.BWD_FMA_LAUNCHES)
         k_ms = time_ms(lambda: ssd_k.ssd_scan_bwd(x, dt, a, bm, c, dy,
                                                   chunk=chunk), 5, flush)
-        ssd_k.BWD_LAUNCHES = before    # timing launches are not main-path
+        # timing launches are not main-path
+        (ssd_k.BWD_LAUNCHES, ssd_k.BWD_TC_LAUNCHES,
+         ssd_k.BWD_FMA_LAUNCHES) = before
         p_ms = time_ms(lambda: ssd_chunked_bwd(x, dt, a, bm, c, dy,
                                                chunk=chunk), 2, flush)
         flops, nbytes = ssd_bwd_flops_bytes(case, dtype)
@@ -3118,15 +3147,16 @@ def phase_ssd_bwd_timing(gen, card):
         res[tag] = {"ms": k_ms[0], "plain_ms": p_ms[0],
                     "bound_ms": max(t_ops, t_bytes),
                     "bound_by": "operations" if t_ops >= t_bytes
-                    else "bytes", "library_ms": None}
+                    else "bytes", "library_ms": None,
+                    "tflops": flops / k_ms[0] / 1e9}
         print(f"[7] ssd_bwd {tag} {str(dtype):14s} B={case[0]} S={case[1]} "
               f"H={case[2]} P={case[3]} G={case[4]} N={case[5]} L={chunk}: "
               f"kernel_ms={spread(k_ms)} plain_ms={spread(p_ms)} bound_ms="
               f"{res[tag]['bound_ms']:.4f} (flops {flops}, bytes {nbytes}; "
               f"bound by {res[tag]['bound_by']}; "
-              f"{flops / k_ms[0] / 1e9:.2f} TFLOP/s) [{card}]")
+              f"{res[tag]['tflops']:.2f} TFLOP/s) [{card}]")
         del x, dt, a, bm, c, dy
-    torch.cuda.empty_cache()
+        torch.cuda.empty_cache()
     return res
 
 
@@ -3595,10 +3625,11 @@ def phase_family_train(card, arch, batch, remat, trace=False):
     ``batch`` rows, bf16 compute over float32 masters, FAMILY_STEPS steps
     from seed 0 with ``remat``.  Every loss finite; the SSD forward
     launches once per mamba layer a step (twice under remat), all on the
-    tensor-core kernels, the SSD backward once per mamba layer a step; the
-    flash forward once per attention layer a step (twice under remat), dq
-    and dkv once, all wgmma; nothing else.  With ``trace``, one more step
-    in a padded trace held to its SSD backward launches.  Returns the
+    tensor-core kernels, the SSD backward once per mamba layer a step,
+    all on the tensor cores; the flash forward once per attention layer a
+    step (twice under remat), dq and dkv once, all wgmma; nothing else.
+    With ``trace``, one more step in a padded trace held to its SSD
+    backward kernels' launches by name.  Returns the
     launches by kernel of the kernels line."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
@@ -3608,6 +3639,7 @@ def phase_family_train(card, arch, batch, remat, trace=False):
     kinds = cfg.layer_kinds()
     n_mamba = sum(k == "mamba" for k in kinds)
     n_attn = len(kinds) - n_mamba
+    twice = 2 if remat != "none" else 1
     ckpt = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     prof = None
     try:
@@ -3650,22 +3682,44 @@ def phase_family_train(card, arch, batch, remat, trace=False):
                                                      batch_t)
 
             kernels, wall, n_bwd, number = padded_trace(
-                one_step, named(r"ssd_bwd_kernel"), n_mamba,
+                one_step, named(r"ssd_bwd_key_kernel"), n_mamba,
                 f"{arch} training step")
             kernels, busy, by_name = _profile_summary(kernels, 1)
             total = sum(t for t, _ in by_name.values())
-            bwd_ms = sum(t for n, (t, _) in by_name.items()
-                         if "ssd_bwd_kernel" in n)
-            fwd_ms = sum(t for n, (t, _) in by_name.items()
-                         if re.search(r"ssd_(cb|state|pass|scan)_kernel", n))
+
+            def by_kernel(k):           # (ms, calls) of the names with k
+                return tuple(map(sum, zip((0.0, 0), *(
+                    v for n, v in by_name.items()
+                    if re.search(rf"\b{k}\b", n)))))
+
+            # the backward's own kernels, one a call; the forward's
+            # ssd_cb/state/pass run once in the forward (twice under
+            # remat) and once more in each backward call
+            fwd_calls = n_mamba * twice
+            calls = {k: by_kernel(k)[1]
+                     for k in SSD_BWD_TC_NAMES + SSD_REBUILD_NAMES}
+            want_calls = {k: n_mamba for k in SSD_BWD_TC_NAMES}
+            want_calls.update({k: n_mamba + fwd_calls
+                               for k in SSD_REBUILD_NAMES})
+            check(calls == want_calls, f"{arch} traced step: SSD kernels "
+                  f"by name {calls}, not {want_calls}")
+            rebuild_ms = sum(by_kernel(k)[0] * n_mamba / want_calls[k]
+                             for k in SSD_REBUILD_NAMES)
+            bwd_ms = (sum(by_kernel(k)[0] for k in SSD_BWD_TC_NAMES)
+                      + rebuild_ms)
+            fwd_ms = (sum(by_kernel(k)[0] for k in SSD_REBUILD_NAMES)
+                      - rebuild_ms + by_kernel("ssd_scan_kernel")[0])
             top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
-            prof = {"trace": {"number": number, "ssd_bwd_kernel": n_bwd,
-                              "want": n_mamba},
+            prof = {"trace": {"number": number, "ssd_bwd_key_kernel": n_bwd,
+                              "want": n_mamba, "ssd_calls_by_name": calls},
                     "step_wall_ms_traced": wall,
                     "device_busy_ms": busy,
                     "device_idle_share_traced": 1 - busy / wall,
                     "kernels": len(kernels),
-                    "ssd_bwd_ms": bwd_ms, "ssd_fwd_ms": fwd_ms,
+                    "ssd_bwd_ms": bwd_ms, "ssd_bwd_rebuild_ms": rebuild_ms,
+                    "ssd_fwd_ms": fwd_ms,
+                    "ssd_bwd_ms_by_kernel": {
+                        k: by_kernel(k)[0] for k in SSD_BWD_TC_NAMES},
                     "ssd_bwd_share_of_kernel_time": bwd_ms / total,
                     "top_kernels_ms": [{"name": n[:80], "ms": t, "calls": c}
                                        for n, (t, c) in top]}
@@ -3676,7 +3730,6 @@ def phase_family_train(card, arch, batch, remat, trace=False):
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
     steps = len(step_ms)
-    twice = 2 if remat != "none" else 1
     check(steps == FAMILY_STEPS, f"{arch}: {steps} steps run")
     check(all(math.isfinite(x) for x in losses),
           f"{arch}: non-finite loss {losses}")
@@ -3685,7 +3738,8 @@ def phase_family_train(card, arch, batch, remat, trace=False):
             "dq_wgmma": n_attn * steps, "dq_fma": 0,
             "dkv_wgmma": n_attn * steps, "dkv_fma": 0,
             "ssd_tc": twice * n_mamba * steps, "ssd_fma": 0,
-            "ssd_bwd": n_mamba * steps}
+            "ssd_bwd": n_mamba * steps, "ssd_bwd_tc": n_mamba * steps,
+            "ssd_bwd_fma": 0}
     check(counts == want, f"{arch} bf16 training (remat={remat}, {steps} "
           f"steps): launches by kernel {counts}, not {want}")
     st = np.asarray(step_ms[1:])
@@ -4010,7 +4064,8 @@ def main() -> int:
         "name": "ssd_bwd", "route": "cuda", "source": SSD_BWD_SOURCE,
         "replaces": SSD_BWD_REPLACES, "max_abs_err": ssd_bwd_err,
         **ssd_bwd_timing["mamba2"],
-        "zamba2_shape": ssd_bwd_timing["zamba2"]})
+        "zamba2_shape": ssd_bwd_timing["zamba2"],
+        "float32_fma": ssd_bwd_timing["mamba2_float32"]})
     for k in kernels:
         k["launches"] = sum(by_path[k["name"]].values())
         k["launches_by_path"] = by_path[k["name"]]

@@ -28,12 +28,15 @@ from repro_torch.optim.adamw import flatten, unflatten
 
 
 def _host(x) -> np.ndarray:
+    """A host copy of ``x``.  Always a copy: on the CPU ``.cpu().numpy()``
+    would share the live storage, which the trainer updates in place
+    while an asynchronous save still writes it."""
     if isinstance(x, torch.Tensor):
         x = x.detach()
         if x.dtype == torch.bfloat16:
             x = x.float()
-        return x.cpu().numpy()
-    return np.asarray(x)
+        return x.to("cpu", copy=True).numpy()
+    return np.array(x)
 
 
 class CheckpointManager:

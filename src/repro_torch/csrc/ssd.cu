@@ -50,6 +50,9 @@
 //                     exp(cum_i) C_i state^T, then + (C B^T o decay o dt) X
 //                     over the key tiles up to the diagonal, each staged
 //                     alone (59 KB of shared memory: three blocks an SM).
+// The first three also rebuild the backward's inputs (repro_ssd_states;
+// ssd_bwd.cu).  The bf16 staging helpers live in ssd_tc.cuh, shared with
+// the backward.
 // bf16 operands (x, B, C) enter the products as they are.  The float32
 // ones (w B, the decayed scores, the state entering a chunk) are split
 // into bf16 hi + lo and go through two products, so each term keeps about
@@ -75,8 +78,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include "hopper.cuh"
 #include "ssd_common.cuh"
+#include "ssd_tc.cuh"
 
 namespace {
 
@@ -328,55 +331,7 @@ cudaError_t launch_t(int P, int N, const void* x, const void* dt,
 }
 
 // ------------------------------------- bf16: chunk-parallel, on wgmma
-using namespace repro_tc;
-
-constexpr int kTcThreads = 128;  // one warpgroup
-typedef __nv_bfloat16 bf16;
-
-// Rows [0, rows) of a bf16 slice with row stride ld (elements) into a
-// Swz<W> tile of `rows` rows: rows at or past `valid` and columns at or past
-// `cols` (a multiple of 8, <= W) as zeros, never loaded.
-template <int W>
-__device__ __forceinline__ void stage(uint32_t tile, const bf16* src,
-                                      long long ld, int rows, int valid,
-                                      int cols) {
-  constexpr int kCh = W / 8;  // 16-byte chunks of a row
-  for (int e = threadIdx.x; e < rows * kCh; e += kTcThreads) {
-    const int r = e / kCh, col = (e % kCh) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r < valid && col < cols)
-      v = *reinterpret_cast<const uint4*>(src + r * ld + col);
-    sts128(swz_addr<W>(tile, rows, r, col), v);
-  }
-}
-
-// Eight floats as bf16 hi + lo into element (r, col) of two Swz<W> tiles.
-template <int W>
-__device__ __forceinline__ void stage_split8(uint32_t hi_t, uint32_t lo_t,
-                                             int rows, int r, int col,
-                                             const float (&v)[8]) {
-  uint32_t h[4], l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) split_bf16(v[2 * i], v[2 * i + 1], h[i], l[i]);
-  sts128(swz_addr<W>(hi_t, rows, r, col), make_uint4(h[0], h[1], h[2], h[3]));
-  sts128(swz_addr<W>(lo_t, rows, r, col), make_uint4(l[0], l[1], l[2], l[3]));
-}
-
-__device__ __forceinline__ void unpack8(uint4 u, float (&v)[8]) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    v[2 * i] = f.x;
-    v[2 * i + 1] = f.y;
-  }
-}
-
-// Launch geometry shared by the host and the kernels: a chunk occupies LT
-// rows (L rounded up to 64-row tiles); nc chunks cover S.
-struct Geo {
-  int S, H, G, P, N, L, LT, nc;
-};
+using namespace repro_ssd_tc;
 
 // C B^T of chunk c, group g, batch row b: rows [64 i, 64 i + 64) against
 // key tiles j <= i, to cb (B, nc, G, LT, LT) float32.  Grid (LT / 64,
@@ -493,20 +448,8 @@ ssd_state_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
   const bf16* bp = Bm + b * sb.b + g * sb.h;
   for (int l64 = 0; l64 < live; l64 += 64) {        // uniform over the block
     stage<64>(x_s, xp + (c0 + l64) * sx.s, sx.s, 64, live - l64, q.P);
-    constexpr int kCh = NW / 8;
-    for (int e = tid; e < 64 * kCh; e += kTcThreads) {
-      const int r = e / kCh, col = (e % kCh) * 8;
-      float vals[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-      if (r < live - l64 && col < q.N) {
-        unpack8(*reinterpret_cast<const uint4*>(bp + (c0 + l64 + r) * sb.s +
-                                                col),
-                vals);
-        const float w = w_s[l64 + r];
-#pragma unroll
-        for (int k = 0; k < 8; ++k) vals[k] *= w;
-      }
-      stage_split8<NW>(whi, wlo, 64, r, col, vals);
-    }
+    stage_scaled_split<NW>(whi, wlo, bp + (c0 + l64) * sb.s, sb.s,
+                           live - l64, q.N, w_s + l64);
     fence_async_smem();
     __syncthreads();
 #pragma unroll
@@ -618,21 +561,10 @@ ssd_scan_kernel(const bf16* __restrict__ x, const bf16* __restrict__ Cm,
     cum_s[l] = cum_ws[cd + l];
     dt_s[l] = dt_ws[cd + l];
   }
-  const float* sp = states + ((static_cast<long long>(b) * q.nc + c) * q.H +
-                              h) * q.P * q.N;
-  constexpr int kCh = NW / 8;
-  for (int e = tid; e < 64 * kCh; e += kTcThreads) {
-    const int r = e / kCh, col = (e % kCh) * 8;
-    float vals[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    if (r < q.P && col < q.N) {
-      const float4 u0 = *reinterpret_cast<const float4*>(sp + r * q.N + col);
-      const float4 u1 =
-          *reinterpret_cast<const float4*>(sp + r * q.N + col + 4);
-      vals[0] = u0.x; vals[1] = u0.y; vals[2] = u0.z; vals[3] = u0.w;
-      vals[4] = u1.x; vals[5] = u1.y; vals[6] = u1.z; vals[7] = u1.w;
-    }
-    stage_split8<NW>(phi, plo, 64, r, col, vals);
-  }
+  stage_split_f32<NW>(phi, plo,
+                      states + ((static_cast<long long>(b) * q.nc + c) *
+                                    q.H + h) * q.P * q.N,
+                      q.P, q.N);
   stage<NW>(c_s, Cm + b * sc.b + g * sc.h + (c0 + 64 * i) * sc.s, sc.s, 64,
             live - 64 * i, q.N);
   fence_async_smem();
@@ -722,7 +654,8 @@ ssd_scan_kernel(const bf16* __restrict__ x, const bf16* __restrict__ Cm,
 }
 
 // ws = {cb, states, cum, dt}: float32 workspaces of B nc G LT^2, B nc H P
-// N, B H nc LT and B H nc LT elements.
+// N, B H nc LT and B H nc LT elements.  With y null, the first three
+// kernels alone (the backward's rebuild of C B^T, cum, dt and the states).
 template <int NW>
 cudaError_t launch_tc(const void* x, const void* dt, const void* A,
                       const void* Bm, const void* C, const void* init,
@@ -762,12 +695,34 @@ cudaError_t launch_tc(const void* x, const void* dt, const void* A,
   ssd_pass_kernel<<<dim3((q.P * q.N + 255) / 256, q.H, B), 256, 0,
                     stream>>>(states, cum, static_cast<const float*>(init),
                               static_cast<float*>(st), q);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if ((err = cudaGetLastError()) != cudaSuccess || y == nullptr) return err;
   ssd_scan_kernel<NW><<<dim3(q.LT / 64, q.H, q.nc * B), kTcThreads,
                         smem_scan, stream>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(C), cb, states,
       cum, dtw, static_cast<bf16*>(y), sx, sc, q);
   return cudaGetLastError();
+}
+
+int run_tc(const void* x, const void* dt, const void* A, const void* Bm,
+           const void* C, const void* init, void* y, void* st,
+           void* const* ws, const long long* strides, int B, int S, int H,
+           int G, int P, int N, int L, cudaStream_t s) {
+  const bool shape = (P == 64 && (N == 128 || N == 64 || N == 32)) ||
+                     (P == 32 && N == 16);
+  if (!shape || ws == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const int nc = (S + L - 1) / L;
+  if (static_cast<long long>(nc) * B > 65535 ||
+      static_cast<long long>(nc) * G > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Geo q{S, H, G, P, N, L, (L + 63) / 64 * 64, nc};
+  if (N <= 32)
+    return static_cast<int>(
+        launch_tc<32>(x, dt, A, Bm, C, init, y, st, ws, strides, q, B, s));
+  if (N <= 64)
+    return static_cast<int>(
+        launch_tc<64>(x, dt, A, Bm, C, init, y, st, ws, strides, q, B, s));
+  return static_cast<int>(
+      launch_tc<128>(x, dt, A, Bm, C, init, y, st, ws, strides, q, B, s));
 }
 
 }  // namespace
@@ -796,21 +751,25 @@ extern "C" int repro_ssd_scan(const void* x, const void* dt, const void* A,
   if (dtype == 0)
     return static_cast<int>(launch_t<float>(P, N, x, dt, A, Bm, C, init, y,
                                             st, strides, B, S, H, G, L, s));
-  const bool shape = (P == 64 && (N == 128 || N == 64 || N == 32)) ||
-                     (P == 32 && N == 16);
-  if (dtype != 1 || !shape || ws == nullptr)
+  if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  return run_tc(x, dt, A, Bm, C, init, y, st, ws, strides, B, S, H, G, P, N,
+                L, s);
+}
+
+// The bf16 path's first three kernels (ssd_cb_kernel, ssd_state_kernel,
+// ssd_pass_kernel) alone, for the backward (ssd_bwd.cu): ws as above ends
+// with C B^T, the state entering each chunk, cum and dt; st gets the final
+// state.  Arguments as repro_ssd_scan's, bf16 only.
+extern "C" int repro_ssd_states(const void* x, const void* dt,
+                                const void* A, const void* Bm, const void* C,
+                                const void* init, void* st, void* const* ws,
+                                const long long* strides, int B, int S,
+                                int H, int G, int P, int N, int L,
+                                void* stream) {
+  if (B <= 0 || S <= 0 || H <= 0 || G <= 0 || H % G != 0 || B > 65535 ||
+      (L != 32 && L != 64 && L != 128 && L != kMaxChunk))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int nc = (S + L - 1) / L;
-  if (static_cast<long long>(nc) * B > 65535 ||
-      static_cast<long long>(nc) * G > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const Geo q{S, H, G, P, N, L, (L + 63) / 64 * 64, nc};
-  if (N <= 32)
-    return static_cast<int>(
-        launch_tc<32>(x, dt, A, Bm, C, init, y, st, ws, strides, q, B, s));
-  if (N <= 64)
-    return static_cast<int>(
-        launch_tc<64>(x, dt, A, Bm, C, init, y, st, ws, strides, q, B, s));
-  return static_cast<int>(
-      launch_tc<128>(x, dt, A, Bm, C, init, y, st, ws, strides, q, B, s));
+  cudaGetLastError();  // the code returned below belongs to this call
+  return run_tc(x, dt, A, Bm, C, init, nullptr, st, ws, strides, B, S, H, G,
+                P, N, L, static_cast<cudaStream_t>(stream));
 }

@@ -34,12 +34,26 @@ number of CUDA kernels), ``TC_LAUNCHES`` and ``FMA_LAUNCHES`` those of
 each path.
 
 ``ssd_scan_bwd`` is the scan's gradient: ``repro_torch/csrc/ssd_bwd.cu``
-(no Pallas counterpart: the reference differentiates its jnp scan), one
-block per (head, batch row) in float32 FMA for both dtypes, with the same
-shapes, strides and ragged S as the forward.  It writes per-head float32
-partials of dB and dC and per-row ones of dA, which this wrapper sums
-over the heads of each group and over the batch: no atomics, so the card
-gives the same bits from run to run.  ``BWD_LAUNCHES`` counts its calls.
+(no Pallas counterpart: the reference differentiates its jnp scan), with
+the same shapes, strides and ragged S as the forward.  The dtype picks
+the path, and a call launches it or raises:
+
+* bf16: chunk-parallel on the tensor cores.  The forward's own
+  ``ssd_cb_kernel``, ``ssd_state_kernel`` and ``ssd_pass_kernel``
+  (``repro_ssd_states`` in ``ssd.cu``) rebuild C B^T, cum, dt and the
+  state entering each chunk; then five kernels of ``ssd_bwd.cu``: each
+  chunk's share of dh_in, the serial reverse pass of dh, the key side (dx,
+  dB, x . g) and the query side (y in float32, dC, dy . y) per 64-row
+  tile, and the suffix sums of dcum (ddt, dA).  Float32 workspaces
+  (``workspace_sizes`` and ``bwd_workspace_sizes``).
+* float32: ``ssd_bwd_kernel``, one block per (head, batch row) walking
+  the chunks in float32 FMA.
+
+Both write per-head float32 partials of dB and dC and per-row (bf16: per
+row and chunk) ones of dA, which this wrapper sums over the heads of each
+group and over the batch: no atomics, so the card gives the same bits
+from run to run.  ``BWD_LAUNCHES`` counts its calls, ``BWD_TC_LAUNCHES``
+and ``BWD_FMA_LAUNCHES`` those of each path.
 """
 from __future__ import annotations
 
@@ -53,12 +67,15 @@ from repro_torch.kernels import _build, readable
 LAUNCHES = 0
 TC_LAUNCHES = 0             # bf16: the four tensor-core kernels
 FMA_LAUNCHES = 0            # float32: ssd_kernel
-BWD_LAUNCHES = 0            # ssd_bwd_kernel
+BWD_LAUNCHES = 0            # the backward, either path
+BWD_TC_LAUNCHES = 0         # bf16: the backward's tensor-core kernels
+BWD_FMA_LAUNCHES = 0        # float32: ssd_bwd_kernel
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 SHAPES = ((64, 128), (64, 64), (64, 32), (32, 16))     # (head_dim, d_state)
 CHUNKS = (32, 64, 128, 256)
 _FN = None
+_STATES_FN = None
 _BWD_FN = None
 
 
@@ -71,6 +88,17 @@ def _fn():
         fn.restype = ctypes.c_int
         _FN = fn
     return _FN
+
+
+def _states_fn():
+    global _STATES_FN
+    if _STATES_FN is None:
+        fn = _build.load("ssd").repro_ssd_states
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p] * 9 + [i] * 7 + [p]
+        fn.restype = ctypes.c_int
+        _STATES_FN = fn
+    return _STATES_FN
 
 
 def _bwd_fn():
@@ -91,6 +119,17 @@ def workspace_sizes(b, s, h, p, g, n, chunk):
     nc, lt = -(-s // chunk), -(-chunk // 64) * 64
     return (b * nc * g * lt * lt, b * nc * h * p * n, b * h * nc * lt,
             b * h * nc * lt)
+
+
+def bwd_workspace_sizes(b, s, h, p, n, chunk):
+    """Float32 elements of the bf16 backward's own workspaces: the final
+    state (B, H, P, N), dstates (B, nc, H, P, N: each chunk's share of
+    dh_in, then the dh leaving it), dy . y and x . g (B, H, nc, LT each),
+    and the reverse pass's parts of <dh_out, h_out> (B, H, nc,
+    ceil(P N / 256))."""
+    nc, lt = -(-s // chunk), -(-chunk // 64) * 64
+    return (b * h * p * n, b * nc * h * p * n, b * h * nc * lt,
+            b * h * nc * lt, b * h * nc * -(-(p * n) // 256))
 
 
 def _check(x, dt, A, Bm, C, chunk, init_state):
@@ -182,7 +221,7 @@ def ssd_scan_bwd(x, dt, A, Bm, C, dy, *, chunk: int,
     ``dfinal_state`` (B,H,P,N) float32 or None for zeros.  Returns (dx in
     x's dtype, ddt float32, dA float32, dBm and dC in their dtypes, dinit
     float32), dx, ddt and dinit contiguous."""
-    global BWD_LAUNCHES
+    global BWD_LAUNCHES, BWD_TC_LAUNCHES, BWD_FMA_LAUNCHES
     name = "ssd_scan_bwd"
     _check(x, dt, A, Bm, C, chunk, init_state)
     if dy.device != x.device or dy.dtype != x.dtype or dy.shape != x.shape:
@@ -202,28 +241,52 @@ def ssd_scan_bwd(x, dt, A, Bm, C, dy, *, chunk: int,
     init = None if init_state is None else init_state.contiguous()
     dfin = None if dfinal_state is None else dfinal_state.contiguous()
     f32 = dict(dtype=torch.float32, device=x.device)
+    nc = -(-s // chunk)
+    tc = x.dtype == torch.bfloat16
     dx = torch.empty(b, s, h, p, dtype=x.dtype, device=x.device)
     ddt = torch.empty(b, s, h, **f32)
-    da = torch.empty(b, h, **f32)
+    da = torch.empty(b, nc, h, **f32) if tc else torch.empty(b, h, **f32)
     db = torch.empty(b, s, h, n, **f32)
     dc = torch.empty(b, s, h, n, **f32)
     dinit = torch.empty(b, h, p, n, **f32)
-    hin = torch.empty(b * -(-s // chunk) * h * p * n, **f32)
-    ptrs = (ctypes.c_void_p * 15)(*(
-        None if t is None else t.data_ptr()
-        for t in (x, dt, A, Bm, C, init, dy, dfin, dx, ddt, da, db, dc,
-                  dinit, hin)))
     vals = [v for t in (x, dt, Bm, C, dy) for v in t.stride()[:3]]
     strides = (ctypes.c_longlong * 15)(*vals)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    outs = (x, dt, A, Bm, C, init, dy, dfin, dx, ddt, da, db, dc, dinit)
+    if tc:
+        # stage 1: the forward's own kernels rebuild C B^T, cum, dt and the
+        # state entering each chunk
+        fws = [torch.empty(k, **f32)
+               for k in workspace_sizes(b, s, h, p, g, n, chunk)]
+        bws = [torch.empty(k, **f32)
+               for k in bwd_workspace_sizes(b, s, h, p, n, chunk)]
+        cb, states, cum, dtw = fws
+        with torch.cuda.device(x.device):
+            err = _states_fn()(
+                x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+                C.data_ptr(), None if init is None else init.data_ptr(),
+                bws[0].data_ptr(),
+                (ctypes.c_void_p * 4)(*(t.data_ptr() for t in fws)),
+                (ctypes.c_longlong * 12)(*vals[:12]), b, s, h, g, p, n,
+                chunk, stream)
+        if err:
+            raise RuntimeError(f"repro_ssd_states launch failed: CUDA error "
+                               f"{err}")
+        work = (states, cb, cum, dtw, *bws)
+        BWD_TC_LAUNCHES += 1
+    else:
+        work = (torch.empty(b * nc * h * p * n, **f32),)     # hin
+        BWD_FMA_LAUNCHES += 1
+    ptrs = (ctypes.c_void_p * (len(outs) + len(work)))(*(
+        None if t is None else t.data_ptr() for t in outs + work))
     BWD_LAUNCHES += 1
     with torch.cuda.device(x.device):
         err = _bwd_fn()(ptrs, strides, b, s, h, g, p, n, chunk,
-                        DTYPES[x.dtype],
-                        torch.cuda.current_stream(x.device).cuda_stream)
+                        DTYPES[x.dtype], stream)
     if err:
         raise RuntimeError(f"repro_ssd_scan_bwd launch failed: CUDA error "
                            f"{err}")
     rep = h // g
-    return (dx, ddt, da.sum(0),
+    return (dx, ddt, da.view(-1, h).sum(0),
             db.view(b, s, g, rep, n).sum(3).to(Bm.dtype),
             dc.view(b, s, g, rep, n).sum(3).to(C.dtype), dinit)

@@ -651,22 +651,32 @@ def test_ssd_wrapper_rejects_what_the_kernel_does_not_take(card):
     assert ssd_k.LAUNCHES == before
 
 
-def test_ssd_gradient_launches_the_backward_kernel_once(card):
+def _bwd_counts():
+    return (ssd_k.BWD_LAUNCHES, ssd_k.BWD_TC_LAUNCHES, ssd_k.BWD_FMA_LAUNCHES)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_gradient_launches_the_backward_kernel_once(card, dtype):
     """A CUDA input that needs a gradient: one forward launch, one
-    backward launch, and the plain backward's gradients."""
-    x, dt, A, Bm, C, init = _ssd_inputs(SSD_CASES[3], 2, torch.float32,
-                                        card)
+    backward launch on its dtype's path (float32: the FMA kernel; bf16:
+    the tensor-core kernels), and the plain backward's gradients."""
+    dtype = getattr(torch, dtype)
+    x, dt, A, Bm, C, init = _ssd_inputs(SSD_CASES[3], 2, dtype, card)
     ins = [t.clone().requires_grad_(True) for t in (x, dt, A, Bm, C, init)]
-    before = ssd_k.LAUNCHES, ssd_k.BWD_LAUNCHES
+    before = ssd_k.LAUNCHES, _bwd_counts()
     y, st = ssd_ops.ssd(*ins[:5], chunk=32, init_state=ins[5])
     w = torch.randn_like(y), torch.randn_like(st)
-    got = torch.autograd.grad((y * w[0]).sum() + (st * w[1]).sum(), ins)
-    assert (ssd_k.LAUNCHES, ssd_k.BWD_LAUNCHES) == (before[0] + 1,
-                                                   before[1] + 1)
-    want = ssd_chunked_bwd(x, dt, A, Bm, C, w[0], chunk=32,
-                           init_state=init, dfinal_state=w[1])
+    got = torch.autograd.grad((y.float() * w[0].float()).sum()
+                              + (st * w[1]).sum(), ins)
+    tc = dtype == torch.bfloat16
+    n, ntc, nfma = before[1]
+    assert (ssd_k.LAUNCHES, _bwd_counts()) == (
+        before[0] + 1, (n + 1, ntc + tc, nfma + (not tc)))
+    want = ssd_chunked_bwd(x.float(), dt, A, Bm.float(), C.float(),
+                           w[0].float(), chunk=32, init_state=init,
+                           dfinal_state=w[1])
     torch.cuda.synchronize()
-    _bwd_close(got, want, torch.float32)
+    _bwd_close(got, want, dtype)
 
 
 def _bwd_close(got, want, dtype):
@@ -703,10 +713,11 @@ def test_ssd_bwd_kernel_matches_plain_version(card, case, dtype, with_init):
     dfin = (torch.tensor(rs.randn(*init.shape).astype(np.float32),
                          device=card) if with_init else None)
     init = init if with_init else None
-    before = ssd_k.BWD_LAUNCHES
+    n, ntc, nfma = _bwd_counts()
+    tc = dtype == torch.bfloat16
     got = ssd_k.ssd_scan_bwd(x, dt, A, Bm, C, dy, chunk=case[-1],
                              init_state=init, dfinal_state=dfin)
-    assert ssd_k.BWD_LAUNCHES == before + 1
+    assert _bwd_counts() == (n + 1, ntc + tc, nfma + (not tc))
     want = ssd_chunked_bwd(x.float(), dt, A, Bm.float(), C.float(),
                            dy.float(), chunk=case[-1], init_state=init,
                            dfinal_state=dfin)
@@ -733,12 +744,34 @@ def test_ssd_bwd_kernel_reads_the_model_layout_through_strides(card, dtype):
         np.float32), device=card).transpose(1, 2)
     A = -torch.rand(h, device=card) - 0.1
     dy = torch.randn(b, s, h, p, device=card).to(dtype)
+    n, ntc, nfma = _bwd_counts()
     got = ssd_k.ssd_scan_bwd(x, dt, A, Bm, C, dy, chunk=chunk)
     want = ssd_k.ssd_scan_bwd(*(t.contiguous() for t in (x, dt, A, Bm, C,
                                                          dy)), chunk=chunk)
+    tc = dtype == torch.bfloat16
+    assert _bwd_counts() == (n + 2, ntc + 2 * tc, nfma + 2 * (not tc))
     torch.cuda.synchronize()
     for a, w in zip(got, want):
         assert torch.equal(a, w)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", SSD_CASES, ids=SSD_IDS)
+def test_ssd_bwd_kernel_gives_the_same_bits_every_run(card, case, dtype):
+    """No float atomics: per-head partials of dB and dC and per-chunk
+    parts of dA, summed in a fixed order, so two calls on the same inputs
+    return identical tensors."""
+    dtype = getattr(torch, dtype)
+    x, dt, A, Bm, C, init = _ssd_inputs(case, 10, dtype, card)
+    gen = torch.Generator(device=card).manual_seed(3)
+    dy = torch.randn(x.shape, device=card, generator=gen).to(dtype)
+    dfin = torch.randn_like(init)
+    runs = [ssd_k.ssd_scan_bwd(x, dt, A, Bm, C, dy, chunk=case[-1],
+                               init_state=init, dfinal_state=dfin)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
 
 
 def test_mamba_serving_on_the_card_matches_the_cpu(card):

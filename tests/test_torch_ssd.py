@@ -20,7 +20,10 @@ own: the chunked and sequential forms sum the same float32 terms in other
 orders.  The bf16 tensor-core kernels' arithmetic (the chunk-parallel split
 with every float32 operand as bf16 hi + lo) is emulated in plain torch and
 held to the card's tolerances (``tests/test_torch_cuda.py``: atol 5e-4
-plus rtol 2^-12 on the state, 2^-8 on the bf16 y).
+plus rtol 2^-12 on the state, 2^-8 on the bf16 y).  So is the bf16
+tensor-core backward's (its five stages, float32 operands as bf16 hi + lo
+and the decayed scores as hi + mid + lo), against ``ssd_chunked_bwd`` at
+the card's limits and ``jax.grad`` of the reference's scan.
 """
 import jax
 import jax.numpy as jnp
@@ -376,3 +379,230 @@ def test_bf16_kernel_arithmetic_keeps_the_tolerances(case, with_init):
     y1, st1 = _emulate_bf16_ssd(x, dt, A, Bm, C, chunk, init, two=False)
     assert max(_excess(y1, wy, 2.0 ** -8),
                _excess(st1, wst, 2.0 ** -12)) > 0
+
+
+# ----------------------------------------- the bf16 backward's arithmetic
+def _hi_mid_lo(v, split=True):
+    """A float32 operand as bf16 hi + mid + lo (each the nearest bf16 of
+    what the ones before leave), or hi alone (``split=False``)."""
+    hi = _bf16(v)
+    if not split:
+        return hi
+    mid = _bf16(v - hi)
+    return hi + mid + _bf16(v - hi - mid)
+
+
+def _emulate_bf16_ssd_bwd(x, dt, A, Bm, C, dy, chunk, init=None,
+                          dfinal=None, two=True, rounded=True, three=True):
+    """The bf16 tensor-core backward's stages and roundings in plain torch
+    (``csrc/ssd_bwd.cu``), products of bf16 values summed in float32:
+    stage 1 the forward's (C B^T per group; each chunk's own state X^T
+    (w B) with w B split into bf16 hi + lo; the states passed in float32);
+    stage 2 each chunk's share of dh_in, dy^T (exp(cum) C), exp(cum) C
+    split; stage 3 the reverse pass in float32, with <dh_out, h_out>;
+    stage 4 the key side (g and dB from dh_out split, the decayed scores
+    split in three and x dy^T o decay split) and the query side (y and dC
+    from h_in split, the decayed scores o dt split in three and dy x^T o
+    decay o dt split); stage 5 the suffix sums of dcum.  dx, dB and dC
+    are rounded to bf16 at the end where ``rounded``; ``two=False``
+    leaves every float32 operand at hi alone, ``three=False`` splits the
+    scores in two as well."""
+    b, s, h, p = x.shape
+    g, n = Bm.shape[2], Bm.shape[3]
+    rep = h // g
+    pad = (-s) % chunk
+    xf, Bf, Cf, dyf = (t.float() for t in (x, Bm, C, dy))
+    dtf = dt.float()
+    if pad:                       # dt = 0 past S, as the kernels read it
+        xf, Bf, Cf, dyf = (F.pad(t, (0, 0, 0, 0, 0, pad))
+                           for t in (xf, Bf, Cf, dyf))
+        dtf = F.pad(dtf, (0, 0, 0, pad))
+    nc = xf.shape[1] // chunk
+    xc, dyc = (t.reshape(b, nc, chunk, h, p) for t in (xf, dyf))
+    dtc = dtf.reshape(b, nc, chunk, h)
+    Bg, Cg = (t.reshape(b, nc, chunk, g, n) for t in (Bf, Cf))
+    Bh, Ch = (t.repeat_interleave(rep, dim=3) for t in (Bg, Cg))
+
+    def hl(v):
+        return _hi_lo(v, two)
+
+    def hml(v):
+        return _hi_mid_lo(v, two) if three else hl(v)
+
+    # stage 1: the forward's C B^T, cum, dt and states
+    cum = torch.cumsum(dtc * A, 2)                            # (B,nc,L,H)
+    seg = cum[:, :, -1]
+    cb = torch.einsum("bctgn,bcsgn->bctsg", Cg, Bg).repeat_interleave(
+        rep, dim=4)                                           # [t, s]
+    tail = torch.exp(seg[:, :, None] - cum)
+    own = torch.einsum("bcshp,bcshn->bchpn", xc,
+                       hl((tail * dtc)[..., None] * Bh))
+    st_ = torch.zeros(b, h, p, n) if init is None else init.float()
+    h_in = []
+    for c in range(nc):
+        h_in.append(st_)
+        st_ = torch.exp(seg[:, c])[..., None, None] * st_ + own[:, c]
+    h_in = torch.stack(h_in, 1)                               # (B,nc,H,P,N)
+    h_out = torch.cat([h_in[:, 1:], st_[:, None]], 1)
+    # stage 2: the shares; stage 3: the reverse pass
+    share = torch.einsum("bcthp,bcthn->bchpn", dyc,
+                         hl(torch.exp(cum)[..., None] * Ch))
+    dh = torch.zeros(b, h, p, n) if dfinal is None else dfinal.float()
+    dh_out = [None] * nc
+    for c in reversed(range(nc)):
+        dh_out[c] = dh
+        dh = torch.exp(seg[:, c])[..., None, None] * dh + share[:, c]
+    dinit, dh_out = dh, torch.stack(dh_out, 1)
+    carry = (dh_out * h_out).sum((-2, -1))                    # (B,nc,H)
+    # stage 4: the key side (rows s) and the query side (rows t)
+    tril = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool))
+    tril = tril[None, None, :, :, None]
+    diff = cum[:, :, :, None] - cum[:, :, None]               # [t, s]
+    decay = torch.where(tril, torch.exp(torch.where(tril, diff, 0.0)), 0.0)
+    dyx = torch.einsum("bcthp,bcshp->bctsh", dyc, xc) * decay
+    dhs, hins = hl(dh_out), hl(h_in)
+    gk = (tail[..., None] * torch.einsum("bcshn,bchpn->bcshp", Bh, dhs)
+          + torch.einsum("bctsh,bcthp->bcshp", hml(cb * decay), dyc))
+    dB = dtc[..., None] * (
+        tail[..., None] * torch.einsum("bcshp,bchpn->bcshn", xc, dhs)
+        + torch.einsum("bctsh,bcthn->bcshn", hl(dyx), Ch))
+    dx = dtc[..., None] * gk
+    xg = (xc * gk).sum(-1)
+    ecum = torch.exp(cum)[..., None]
+    dts = dtc[:, :, None]                                     # dt_s
+    y = (ecum * torch.einsum("bcthn,bchpn->bcthp", Ch, hins)
+         + torch.einsum("bctsh,bcshp->bcthp", hml(cb * decay * dts), xc))
+    dC = (ecum * torch.einsum("bcthp,bchpn->bcthn", dyc, hins)
+          + torch.einsum("bctsh,bcshn->bcthn", hl(dyx * dts), Bh))
+    # stage 5: dcum's suffix sums
+    dcum = (dyc * y).sum(-1) - dtc * xg
+    dcum[:, :, -1] += carry
+    rsum = torch.flip(torch.cumsum(torch.flip(dcum, [2]), 2), [2])
+    ddt = xg + A * rsum
+    dA = (dtc * rsum).sum((0, 1, 2))
+
+    def out(t):
+        return t.reshape(b, nc * chunk, *t.shape[3:])[:, :s]
+
+    def grouped(t):
+        return out(t.reshape(b, nc, chunk, g, rep, n).sum(4))
+
+    got = [out(dx), out(ddt), dA, grouped(dB), grouped(dC), dinit]
+    if rounded:
+        for k in (0, 3, 4):
+            got[k] = _bf16(got[k])
+    return got
+
+
+def _bwd_excess(got, want):
+    """The worst excess of each gradient over the card's limits for bf16
+    (``chip_smoke.py::ssd_bwd_limits``): dx atol + 2^-8 of each element,
+    dinit atol + 2^-12; ddt, dA, dB and dC atol + 2^-12 of the tensor's
+    largest |value|, dB and dC also + 2^-8 of each element."""
+    out = []
+    for k, (a, w) in enumerate(zip(got, want)):
+        w = w.float().abs()
+        lim = ATOL + {0: 2.0 ** -8 * w, 5: 2.0 ** -12 * w}.get(
+            k, 2.0 ** -12 * float(w.max())
+            + (2.0 ** -8 * w if k in (3, 4) else 0.0))
+        out.append(float(((a.float() - want[k].float()).abs() - lim).max()))
+    return out
+
+
+BF16_BWD_CASES = [                  # b, s, h, p, g, n, chunk
+    (2, 128, 4, 64, 1, 32, 32),
+    (1, 200, 4, 64, 2, 64, 64),     # ragged S, G 2
+    (1, 256, 2, 64, 1, 128, 128),   # mamba2's (P, N)
+    (1, 300, 4, 32, 2, 16, 256),    # chunk 256, ragged S
+    (2, 77, 4, 32, 1, 16, 32),      # ragged S inside the first tile
+]
+BF16_BWD_IDS = [f"tc{i}" for i in range(len(BF16_BWD_CASES))]
+
+
+def _bf16_bwd_inputs(case, with_init, seed=12):
+    b, s, h, p, g, n, chunk = case
+    x, dt, A, Bm, C, init, dy, dfin = (torch.from_numpy(a) for a in
+                                       _bwd_inputs(b, s, h, p, g, n, seed))
+    x, Bm, C, dy = (_bf16(t) for t in (x, Bm, C, dy))
+    return (x, dt, A, Bm, C, dy, init if with_init else None,
+            dfin if with_init else None)
+
+
+@pytest.mark.parametrize("with_init", [False, True],
+                         ids=["zeros", "init_dfinal"])
+@pytest.mark.parametrize("case", BF16_BWD_CASES, ids=BF16_BWD_IDS)
+def test_bf16_bwd_arithmetic_keeps_the_tolerances(case, with_init):
+    """The bf16 tensor-core backward's stages and hi + lo splits, emulated
+    on bf16 values: with its bf16 roundings inside the card's limits
+    against ``ref.ssd_chunked_bwd`` (phase 3's ``ssd_bwd_limits``), and
+    before them within atol 5e-4 of ``jax.grad`` of the reference's
+    ``ssd_chunked`` (dt in mamba2's range, as the plain backward's twin).
+    dA alone is held as the card holds it, atol 5e-4 plus 2^-12 of its
+    largest |value|: it sums dt_u R_u over every position of every row,
+    terms far larger than the result (|dA| 8-300 here), and each split
+    term is up to 2^-17 of its size off, so elementwise it misses atol
+    5e-4 by up to 1.2e-3 (tc2, |dA| 17) where the float32 plain version
+    stays within 1.1e-4."""
+    chunk = case[6]
+    x, dt, A, Bm, C, dy, init, dfin = _bf16_bwd_inputs(case, with_init)
+    want = ssd_chunked_bwd(x, dt, A, Bm, C, dy, chunk=chunk,
+                           init_state=init, dfinal_state=dfin)
+    got = _emulate_bf16_ssd_bwd(x, dt, A, Bm, C, dy, chunk, init, dfin)
+    assert max(_bwd_excess(got, want)) <= 0
+
+    def loss(x, dt, A, Bm, C, init):
+        y, fin = jssd_chunked(x, dt, A, Bm, C, chunk=chunk,
+                              init_state=init if with_init else None)
+        return jnp.sum(y * jnp.asarray(dy.numpy())) + (
+            jnp.sum(fin * jnp.asarray(dfin.numpy())) if with_init else 0.0)
+
+    init0 = init if with_init else torch.zeros(case[0], case[2], case[3],
+                                               case[5])
+    jgrad = jax.grad(loss, argnums=tuple(range(6)))(
+        *_j(*(t.numpy() for t in (x, dt, A, Bm, C, init0))))
+    raw = _emulate_bf16_ssd_bwd(x, dt, A, Bm, C, dy, chunk, init, dfin,
+                                rounded=False)
+    for k, (mine, ref) in enumerate(zip(raw, jgrad)):
+        if k < 5 or with_init:
+            assert bool(np.isfinite(np.asarray(ref)).all())
+            ref = np.asarray(ref)
+            np.testing.assert_allclose(
+                np.asarray(mine), ref,
+                atol=ATOL + (2.0 ** -12 * np.abs(ref).max() if k == 2
+                             else 0.0))
+
+
+def test_bf16_bwd_without_the_split_misses():
+    """One bf16 rounding of each float32 operand (hi alone) takes the
+    emulated backward outside the card's limits, which is why the kernels
+    run hi + lo."""
+    case = BF16_BWD_CASES[2]
+    x, dt, A, Bm, C, dy, init, dfin = _bf16_bwd_inputs(case, True)
+    want = ssd_chunked_bwd(x, dt, A, Bm, C, dy, chunk=case[6],
+                           init_state=init, dfinal_state=dfin)
+    got = _emulate_bf16_ssd_bwd(x, dt, A, Bm, C, dy, case[6], init, dfin,
+                                two=False)
+    assert max(_bwd_excess(got, want)) > 0
+
+
+def test_bf16_bwd_scores_split_in_three_hold_where_two_miss():
+    """The card test's inputs (``tests/test_torch_cuda.py`` SSD_CASES[2]:
+    dt = softplus(normal), chunk 128 of two 64-row tiles): with the
+    decayed scores of g and y split in two, dA misses the card's limit
+    (the card's first version missed it by 1.6x at the ragged main
+    shape); split in three, as the kernels do, every gradient holds."""
+    b, s, h, p, g, n, chunk = 2, 256, 4, 32, 4, 16, 128
+    rs = np.random.RandomState(8)
+    x = _bf16(torch.from_numpy(rs.randn(b, s, h, p).astype(np.float32)))
+    dt = torch.from_numpy(np.logaddexp(rs.randn(b, s, h), 0.0).astype(
+        np.float32))
+    A = torch.from_numpy((-np.exp(rs.randn(h) * 0.5)).astype(np.float32))
+    Bm, C = (_bf16(torch.from_numpy((rs.randn(b, s, g, n) * 0.3).astype(
+        np.float32))) for _ in range(2))
+    dy = _bf16(torch.from_numpy(np.random.RandomState(9).randn(
+        b, s, h, p).astype(np.float32)))
+    want = ssd_chunked_bwd(x, dt, A, Bm, C, dy, chunk=chunk)
+    got = _emulate_bf16_ssd_bwd(x, dt, A, Bm, C, dy, chunk)
+    assert max(_bwd_excess(got, want)) <= 0
+    two = _emulate_bf16_ssd_bwd(x, dt, A, Bm, C, dy, chunk, three=False)
+    assert _bwd_excess(two, want)[2] > 0

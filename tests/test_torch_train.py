@@ -355,6 +355,41 @@ def test_checkpoint_atomicity_no_partial_dirs(tmp_path):
     assert mgr.all_steps() == [5]
 
 
+def test_async_checkpoint_holds_the_state_of_its_step(tmp_path,
+                                                      monkeypatch):
+    """An asynchronous save holds the state as it was when ``save``
+    returned, though the caller goes on to update the tensors in place
+    (as ``adamw.update`` does) while the writer runs.  On the CPU
+    ``.cpu().numpy()`` shares the live storage, so the snapshot must be a
+    copy; a slow writer (as under a loaded test run) shows it."""
+    import repro_torch.checkpoint.manager as mgr_mod
+    save = mgr_mod.np.save
+    go = __import__("threading").Event()
+
+    class SlowNp:
+        def __getattr__(self, name):
+            return getattr(np, name)
+
+        @staticmethod
+        def save(*a, **k):
+            go.wait(5.0)                # the step's update lands first
+            return save(*a, **k)
+
+    monkeypatch.setattr(mgr_mod, "np", SlowNp())
+    mgr = CheckpointManager(str(tmp_path), async_save=True)
+    p = torch.arange(6.0)
+    h = torch.ones(3).bfloat16()
+    mgr.save(4, {"p": p, "h": h})
+    with torch.no_grad():
+        p.copy_(p * 10 + 1)
+        h.copy_(h * 3)
+    go.set()
+    got, at = mgr.restore({"p": torch.zeros(6), "h": h})
+    assert at == 4
+    assert torch.equal(got["p"], torch.arange(6.0))
+    assert torch.equal(got["h"], torch.ones(3).bfloat16())
+
+
 @pytest.mark.parametrize("writer", ["reference", "port"])
 def test_checkpoints_cross_between_the_packages(tmp_path, writer):
     """Same layout on disk: each package restores the other's files."""
@@ -534,11 +569,18 @@ def test_trainer_with_compression_tracks_the_reference_trainer(tmp_path):
                                    atol=bound, err_msg=path)
 
 
+# The restart tests are about restarts: a batch that the loaded test run's
+# prefetch thread takes past the default 5 s would be logged as a straggler
+# skip (test_trainer_straggler_skip covers those), so they wait longer.
+_NO_SKIP_S = 120.0
+
+
 def test_trainer_restart_bit_identical_with_compression(tiny, tmp_path):
     """An injected failure restores ``ef`` with the rest of the optimizer
     state: the run ends bit-identical to an uninterrupted one."""
     cfg, shape = tiny
-    kw = dict(steps=8, log_every=2, ckpt_every=4, seed=11)
+    kw = dict(steps=8, log_every=2, ckpt_every=4, seed=11,
+              batch_timeout_s=_NO_SKIP_S)
     runs = []
     for name, fail in (("a", -1), ("b", 6)):
         t = Trainer(cfg, shape, TrainConfig(
@@ -546,6 +588,7 @@ def test_trainer_restart_bit_identical_with_compression(tiny, tmp_path):
             compression=_compression(), **kw), device="cpu")
         runs.append((t, t.run()))
     (t1, r1), (t2, r2) = runs
+    assert r1["skipped_steps"] == r2["skipped_steps"] == []
     assert (r1["restarts"], r2["restarts"]) == (0, 1)
     assert r1["final_loss"] == r2["final_loss"]
     for tree in ("params", "ef"):
@@ -559,15 +602,20 @@ def test_trainer_restart_bit_identical_with_compression(tiny, tmp_path):
 
 
 def test_trainer_restart_bit_identical(tiny, tmp_path):
+    """A failure at step 6 restores the asynchronous checkpoint of step 4
+    (written while steps 5 and 6 update the parameters in place) and ends
+    bit-identical to an uninterrupted run."""
     cfg, shape = tiny
-    kw = dict(steps=8, log_every=2, ckpt_every=4, seed=11)
+    kw = dict(steps=8, log_every=2, ckpt_every=4, seed=11,
+              batch_timeout_s=_NO_SKIP_S)
     t1 = Trainer(cfg, shape, TrainConfig(ckpt_dir=str(tmp_path / "a"), **kw),
                  device="cpu")
     r1 = t1.run()
     t2 = Trainer(cfg, shape, TrainConfig(ckpt_dir=str(tmp_path / "b"),
                                          fail_at_step=6, **kw), device="cpu")
     r2 = t2.run()
-    assert r2["restarts"] == 1
+    assert r1["skipped_steps"] == r2["skipped_steps"] == []
+    assert (r1["restarts"], r2["restarts"]) == (0, 1)
     assert r1["final_loss"] == r2["final_loss"]   # bitwise identical
     for a, b in zip(adamw.flatten(t1.params).values(),
                     adamw.flatten(t2.params).values()):
@@ -634,7 +682,8 @@ def test_trainer_steps_the_hybrid_and_restarts_bit_identical(tmp_path):
     one."""
     cfg = get_config("zamba2-2.7b").reduced()
     shape = ShapeConfig("t", "train", 32, 2)
-    kw = dict(steps=4, log_every=1, ckpt_every=2, seed=3)
+    kw = dict(steps=4, log_every=1, ckpt_every=2, seed=3,
+              batch_timeout_s=_NO_SKIP_S)
     runs = []
     for name, fail in (("a", -1), ("b", 3)):
         t = Trainer(cfg, shape, TrainConfig(ckpt_dir=str(tmp_path / name),
@@ -642,6 +691,7 @@ def test_trainer_steps_the_hybrid_and_restarts_bit_identical(tmp_path):
                     device="cpu")
         runs.append((t, t.run()))
     (t1, r1), (t2, r2) = runs
+    assert r1["skipped_steps"] == r2["skipped_steps"] == []
     assert (r1["restarts"], r2["restarts"]) == (0, 1)
     assert np.isfinite(r1["final_loss"])
     assert r1["final_loss"] == r2["final_loss"]
