@@ -147,6 +147,20 @@ three times (``padded_trace``).  Phases, in order:
  18. the serving launcher ``repro_torch.launch.serve.main([])`` on the
      card at its defaults: 16 requests, every one complete, paged
      launches = n_layers x decode steps, no other kernel;
+ 19. tensor parallel (``repro_torch.launch.mesh.run_ranks``: ranks on
+     ``cuda:0`` over gloo, NCCL refusing two ranks on one device):
+     full-width smollm-135m at TP 3 (3 query and 1 KV head a rank) and TP
+     2 (heads replicated, the MLP split), fp32, phase 4's prompts cut to
+     8: each rank's first decode logits against the single-process port
+     on the card, greedy tokens identical under teacher forcing over 32
+     steps, the engine's paged launches = 30 x decode steps at the local
+     head count and 2 x 30 + 1 collectives a TP 3 decode step (30 + 1 at
+     TP 2); bf16 TP 3 through the engine (launches, step wall: gloo
+     staging through the host, not a TP speed); 8 ranks on a (pod 2,
+     data 2, model 2) mesh: hierarchical vs flat all-reduce, context-
+     parallel decode attention at smollm's head layout over a 4096-token
+     cache vs the dense one, the pod 0 -> pod 1 KV hand-off; the count of
+     collective operands copied through the host;
   8. profiles: where a steady decode step (every slot full), a training
      step, a mamba prefill call and a mamba decode step spend their time
      (host wall untraced and traced, device busy time, the device's idle
@@ -154,8 +168,8 @@ three times (``padded_trace``).  Phases, in order:
 
 Each main path runs with every kernel's launch count set to 0 just before
 it and read just after it; each phase's number is printed at the start of
-its lines (phases 10-14 run after phase 4, phases 9, 15, 16, 17 and 18
-after phase 5).  Any failed phase ends the script with a
+its lines (phases 10-14 run after phase 4, phases 9, 15, 16, 17, 18 and
+19 after phase 5).  Any failed phase ends the script with a
 non-zero exit and no result line.  The line before the last is a JSON
 object describing each kernel; the last line is ``{"ok": true, "device":
 {...}}``.  Imports nothing of JAX and nothing of the JAX package.
@@ -438,6 +452,29 @@ FA_CASES += [(2, 16, 16, n, k, 64, k == n, 0)
              for k in (n, WHISPER_FRAMES)]
 BWD_CASES += [WHISPER_CROSS_FA, WHISPER_SELF_FA, WHISPER_ENC_FA]
 
+# phase 19: tensor parallel.  Several ranks share the one card (cuda:0)
+# over gloo with CUDA tensors: NCCL refuses two ranks on one device.  So every time here is gloo staging
+# each collective through the host on one card, not a TP speed.  Full-width
+# smollm-135m (9 query / 3 KV heads of 64, d_ff 1536) at TP 3 (3 query and
+# 1 KV head a rank, d_ff 512: both parts shard) and TP 2 (3 % 2 != 0: the
+# heads replicate, d_ff 768 shards), fp32, the same seeded weights on every
+# rank and in the parent; phase 4's prompts cut to TP_REQUESTS, greedy,
+# TP_STEPS new tokens.  First decode logits against the single-process
+# port on the card at atol TP_LOGITS_ATOL (fp32; the partial sums meet in
+# another order, as phase 13's dense-vs-paged check); tokens identical
+# under teacher forcing.  Then bf16 TP 3 on the same traffic for the
+# launch counts, the step wall and the collectives a decode step (2 x 30
+# all-reduces and one token broadcast).  Then 8 ranks on a (pod 2, data
+# 2, model 2) mesh: the hierarchical all-reduce against the flat one at
+# atol 1e-5, context-parallel decode attention at smollm's head layout
+# over a 4096-token cache (TP_CP) against the dense one at atol 1e-4 (fp32),
+# and the pod 0 -> pod 1 KV hand-off, exact.
+TP_REQUESTS, TP_STEPS, TP_LOGITS_ATOL, TP_SEED = 8, 32, 1e-3, 19
+TP_MMU = dict(page_size=16, n_pages=512)
+TP_TIMEOUT_S, TP_DEADLINE_S = 60, 240
+TP_CP = (4, 9, 3, 64, 4096)                # batch, H, K, head dim, sequence
+TP3_SHAPE = (TP_REQUESTS, 3, 1, 64, 16, 64, TP_MMU["n_pages"])
+TP2_SHAPE = (TP_REQUESTS, 9, 3, 64, 16, 64, TP_MMU["n_pages"])
 
 def check(cond: bool, msg: str) -> None:
     if not cond:
@@ -504,6 +541,10 @@ def phase_kernels(pa, ref, gen):
     # to the longest, as the groups and the gateway leave them
     cases.append(("mig", MIG_SHAPE, [MIG_LEN, 64, 0, 301, 512, 0, 97,
                                      MIG_LEN - 1], None))
+    # phase 19's TP engines (8 rows, maxp 64, 512 pages): TP 3's head
+    # slice of 3 query heads and 1 KV head, TP 2's replicated heads
+    cases.append(("tp3", TP3_SHAPE, main_lens(8, 16, 64), None))
+    cases.append(("tp2", TP2_SHAPE, main_lens(8, 16, 64), None))
     # phase 14's engines: granite (G 2, D 64) and llama4 (G 5, D 128)
     cases.append(("granite", GRANITE_SHAPE, main_lens(16, 16, 64), None))
     cases.append(("llama4", LLAMA4_SHAPE, [int(x) for x in np.random
@@ -3906,6 +3947,268 @@ def phase_whisper_timing(gen, card):
     return res
 
 
+def tp_prompts(cfg):
+    """Phase 4's prompts, cut to the first TP_REQUESTS."""
+    return [p for p, _ in main_requests(cfg)[:TP_REQUESTS]]
+
+
+def _tp_weights(cfg, dtype):
+    from repro_torch.models.transformer import init_params
+    gen = torch.Generator(device="cuda").manual_seed(TP_SEED)
+    return init_params(cfg, generator=gen, dtype=dtype, device="cuda")
+
+
+def _teacher_forced(params, run_cfg, prompts, forced, hooks):
+    """Prefill ``prompts`` through ``prefill_shared_paged`` (zero
+    coverage, as the engine prefills a fresh admission), then TP_STEPS
+    decode steps through the paged model, each fed ``forced[t]`` (the
+    step's greedy token when ``forced`` is None).  Returns the first
+    decode step's logits and every step's greedy tokens, (TP_STEPS + 1, n)
+    with the prefill's first."""
+    from repro_torch.core.services.mmu import MMU, MMUConfig
+    from repro_torch.serve import paged_model as PM
+    page = TP_MMU["page_size"]
+    mmu = MMU(MMUConfig(**TP_MMU))
+    n = len(prompts)
+    longest = max(len(p) for p in prompts) + TP_STEPS + 1
+    maxp = -(-longest // page)
+    for i, p in enumerate(prompts):
+        mmu.alloc_seq(i + 1, len(p) + TP_STEPS + 1)
+    dev = torch.device("cuda")
+    tables = torch.tensor(mmu.block_table(list(range(1, n + 1)), maxp),
+                          device=dev)
+    pools = PM.make_pools(run_cfg, TP_MMU["n_pages"], page,
+                          dtype=params["embed"]["table"].dtype, device=dev)
+    tokens = torch.zeros(n, max(len(p) for p in prompts), dtype=torch.int32)
+    for i, p in enumerate(prompts):
+        tokens[i, :len(p)] = torch.tensor(p)
+    lens = torch.tensor([len(p) for p in prompts], dtype=torch.int32,
+                        device=dev)
+    zeros = torch.zeros_like(lens)
+    first = PM.prefill_shared_paged(
+        params, pools, tokens.to(dev), lens, zeros, zeros, tables, 0,
+        torch.zeros(n, device=dev), cfg=run_cfg, page_size=page,
+        filters_on=False, **hooks)
+    greedy = [first]
+    last = first if forced is None else torch.as_tensor(forced[0],
+                                                        device=dev)
+    logits0 = None
+    for t in range(TP_STEPS):
+        logits = PM._decode_logits(params, pools, tables, lens, last,
+                                   cfg=run_cfg, page_size=page, **hooks)
+        if logits0 is None:
+            logits0 = logits.float().cpu().numpy()
+        greedy.append(logits.argmax(dim=-1).int())
+        last = (greedy[-1] if forced is None
+                else torch.as_tensor(forced[t + 1], device=dev))
+        lens = lens + 1
+    return logits0, torch.stack(greedy).cpu().numpy()
+
+
+def _tp_engine(cfg, params, mesh, svc, prompts, dev):
+    """The TP engine through its entry point: every prompt submitted,
+    stepped to completion with each step's collectives counted and every
+    paged-kernel call's head counts recorded, launches counted from 0."""
+    from repro_torch.core.services.mmu import MMU, MMUConfig
+    from repro_torch.serve import paged_model as PM
+    from repro_torch.serve.engine import ServingEngine
+    heads, base = set(), PM.paged_decode
+
+    def spy(q, k_pages, *args, **kw):
+        heads.add((q.shape[1], k_pages.shape[2]))
+        return base(q, k_pages, *args, **kw)
+
+    mmu = MMU(MMUConfig(**TP_MMU))
+    eng = ServingEngine(cfg, params, mmu, max_batch=TP_REQUESTS,
+                        max_len=1024, mesh=mesh, collectives=svc,
+                        device=dev)
+    for p in prompts:
+        eng.submit(p, max_new_tokens=TP_STEPS)
+    decode_calls = []
+    PM.paged_decode = spy
+    try:
+        _zero_counts()
+        t0 = time.perf_counter()
+        while eng.pending():
+            c0, p0, s0 = svc.calls, eng.prefill_obs, eng.steps
+            eng.step()
+            if eng.steps > s0 and eng.prefill_obs == p0:
+                decode_calls.append(svc.calls - c0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _launch_counts()
+    finally:
+        PM.paged_decode = base
+    check(len(eng.completed) == TP_REQUESTS and all(
+        len(r.out_tokens) == TP_STEPS for r in eng.completed),
+          "TP engine: a request did not complete with all its tokens")
+    check(mmu.utilization()["pages_used"] == 0, "TP engine leaked pages")
+    want = dict({k: 0 for k in counts}, paged=cfg.n_layers * eng.steps)
+    check(counts == want, f"TP engine launches {counts}, not {want}")
+    local = (eng.tp.local_cfg.n_heads, eng.tp.local_cfg.n_kv_heads)
+    check(heads == {local}, f"TP engine: paged calls at heads {heads}, "
+                            f"not the local {local}")
+    st = np.asarray(eng.decode_step_times) * 1e3
+    return eng, {
+        "decode_steps": eng.steps, "paged_launches": counts["paged"],
+        "paged_heads": sorted(heads), "wall_s": wall,
+        "collectives_per_decode_step": sorted(set(decode_calls)),
+        "decode_step_ms_p50": float(np.percentile(st, 50)),
+        "decode_step_ms_p90": float(np.percentile(st, 90)),
+        "streams": {r.rid: list(r.out_tokens) for r in eng.completed}}
+
+
+def tp_rank(rank, world, dev, forced, bf16):
+    """One rank of phase 19's TP 2 or 3 run (``world`` ranks on the
+    model dim): the teacher-forced fp32 check through the TP context's
+    functions, the fp32 engine, and with ``bf16`` the bf16 engine."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.services.collectives import CollectiveService
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.serve.tp import TPContext
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("smollm-135m")
+    mesh = make_host_mesh(1, world, device="cuda")
+    prompts = tp_prompts(cfg)
+    svc = CollectiveService()
+    full = _tp_weights(cfg, torch.float32)
+    tp = TPContext(cfg, mesh, full, page_size=TP_MMU["page_size"],
+                   collectives=svc)
+    logits0, greedy = _teacher_forced(tp.params, tp.local_cfg, prompts,
+                                      forced, tp.hooks)
+    out = {"rank": rank, "plan": {"shard_heads": tp.shard_heads,
+                                  "shard_mlp": tp.shard_mlp},
+           "local_heads": (tp.local_cfg.n_heads, tp.local_cfg.n_kv_heads),
+           "local_d_ff": int(tp.params["layers"]["ffn"]["w_up"].shape[-1]),
+           "logits0": logits0, "greedy": greedy}
+    _, out["fp32"] = _tp_engine(cfg, full, mesh, svc, prompts, dev)
+    del tp, full
+    if bf16:
+        _, out["bf16"] = _tp_engine(cfg, _tp_weights(cfg, torch.bfloat16),
+                                    mesh, svc, prompts, dev)
+    out["host_copies"] = svc.host_copies
+    return out
+
+
+def mesh8_rank(rank, world, dev):
+    """One rank of phase 19's (pod 2, data 2, model 2) mesh: the
+    hierarchical against the flat all-reduce, context-parallel decode
+    attention against the dense one, and the pod hand-off."""
+    from repro_torch.core.services.collectives import (CollectiveConfig,
+                                                       CollectiveService)
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.attention import attend_decode, attend_decode_cp
+    from repro_torch.serve.disaggregated import make_handoff_fn
+    mesh = make_mesh((2, 2, 2), ("pod", "data", "model"), device="cuda")
+    pod, data, model = (mesh.get_local_rank(a)
+                        for a in ("pod", "data", "model"))
+    gen = torch.Generator(device="cuda").manual_seed(TP_SEED)
+    # each rank's (pod, data) block has an odd size: the reduce-scatter pads
+    x = torch.randn(12, 1365, generator=gen, device=dev)
+    local = x.chunk(4)[pod * 2 + data]
+    svc = CollectiveService(CollectiveConfig(schedule="hierarchical"))
+    flat = CollectiveService(CollectiveConfig(schedule="flat"))
+    hier = svc.all_reduce(local, mesh)
+    want = flat.all_reduce(local, mesh)
+    b, h, k, d, s = TP_CP
+    q = torch.randn(b, 1, h, d, generator=gen, device=dev)
+    kc = torch.randn(b, s, k, d, generator=gen, device=dev)
+    vc = torch.randn(b, s, k, d, generator=gen, device=dev)
+    lens = torch.tensor([s, 3001, 2048, 17], dtype=torch.int32, device=dev)
+    dense = attend_decode(q, kc, vc, lens).chunk(2)[data]
+    rows = [t.chunk(2)[data] for t in (q, kc, vc, lens)]
+    rows[1], rows[2] = (t.chunk(2, dim=1)[model] for t in rows[1:3])
+    cp = attend_decode_cp(*rows, mesh, collectives=svc)
+    cache = {"k": torch.randn(4, 16, k, d, generator=gen, device=dev),
+             "v": torch.randn(4, 16, k, d, generator=gen, device=dev)}
+    handoff, _ = make_handoff_fn(mesh, svc)
+    got = handoff({n: v.chunk(2)[pod] for n, v in cache.items()})
+    torch.cuda.synchronize()
+    return {"coords": (pod, data, model),
+            "hier_err": float((hier - want).abs().max()),
+            "flat_err": float((want - x.reshape(4, 3, -1).sum(0)).abs()
+                              .max()),
+            "cp_err": float((cp - dense).abs().max()),
+            "handoff_exact": all(torch.equal(got[n], v.chunk(2)[0])
+                                 for n, v in cache.items()),
+            "host_copies": svc.host_copies + flat.host_copies}
+
+
+def phase_tensor_parallel(card):
+    """Phase 19: tensor-parallel serving and the multi-rank collectives on
+    the card (see TP_REQUESTS).  Returns rank 0's paged launches of the
+    fp32 TP 3 engine."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import run_ranks
+    cfg = get_config("smollm-135m")
+    torch.cuda.empty_cache()
+    # the single-process port on the card: the teacher-forced reference
+    logits0, greedy = _teacher_forced(_tp_weights(cfg, torch.float32), cfg,
+                                      tp_prompts(cfg), None, {})
+    torch.cuda.empty_cache()
+    kw = dict(backend="gloo", device="cuda:0", timeout_s=TP_TIMEOUT_S,
+              deadline_s=TP_DEADLINE_S)
+    launches = None
+    for world in (3, 2):
+        t0 = time.perf_counter()
+        outs = run_ranks(tp_rank, world, greedy, world == 3, **kw)
+        ranks_s = time.perf_counter() - t0
+        plan = (world == 3, True)
+        for o in outs:
+            tag = f"TP {world} rank {o['rank']}"
+            check((o["plan"]["shard_heads"], o["plan"]["shard_mlp"]) == plan,
+                  f"{tag}: plan {o['plan']}")
+            check(o["local_d_ff"] == cfg.d_ff // world, f"{tag}: d_ff")
+            err = float(np.abs(o["logits0"] - logits0).max())
+            o["logits0_err"] = err
+            check(err <= TP_LOGITS_ATOL, f"{tag}: first-step logits {err}")
+            check(np.array_equal(o["greedy"], greedy),
+                  f"{tag}: teacher-forced greedy tokens differ")
+            for dt in ("fp32", "bf16"):
+                if dt in o:
+                    check(o[dt]["streams"] == outs[0][dt]["streams"],
+                          f"{tag}: {dt} streams differ from rank 0's")
+                    want = cfg.n_layers * (int(plan[0]) + int(plan[1])) + 1
+                    check(o[dt]["collectives_per_decode_step"] == [want],
+                          f"{tag} {dt}: collectives a decode step "
+                          f"{o[dt]['collectives_per_decode_step']}, not "
+                          f"[{want}]")
+        r0 = outs[0]
+        if world == 3:
+            launches = r0["fp32"]["paged_launches"]
+        print("[19] " + json.dumps({
+            "card": card, "model": "smollm-135m (random weights)",
+            "tp": world, "ranks_on": "cuda:0, gloo",
+            "plan": r0["plan"], "local_heads": r0["local_heads"],
+            "local_d_ff": r0["local_d_ff"],
+            "logits0_max_abs_err": [o["logits0_err"] for o in outs],
+            "teacher_forced_steps": TP_STEPS, "requests": TP_REQUESTS,
+            "ranks_s": ranks_s,
+            "host_copies": [o["host_copies"] for o in outs],
+            **{dt: {k: v for k, v in r0[dt].items() if k != "streams"}
+               for dt in ("fp32", "bf16") if dt in r0},
+            "note": "step times are gloo staging through the host on one "
+                    "card, not a TP speed"}))
+    t0 = time.perf_counter()
+    outs = run_ranks(mesh8_rank, 8, **kw)
+    for o in outs:
+        tag = f"mesh (2, 2, 2) rank at {o['coords']}"
+        check(o["hier_err"] <= 1e-5 and o["flat_err"] <= 1e-5,
+              f"{tag}: all-reduce {o['hier_err']}, {o['flat_err']}")
+        check(o["cp_err"] <= 1e-4, f"{tag}: cp attention {o['cp_err']}")
+        check(o["handoff_exact"], f"{tag}: hand-off not exact")
+    print("[19] " + json.dumps({
+        "card": card, "mesh": "(pod 2, data 2, model 2), 8 ranks on cuda:0, "
+        "gloo", "ranks_s": time.perf_counter() - t0,
+        "hier_vs_flat_max_abs_err": max(o["hier_err"] for o in outs),
+        "cp_decode_max_abs_err": max(o["cp_err"] for o in outs),
+        "cp_shape": dict(zip(("batch", "heads", "kv_heads", "head_dim",
+                              "seq"), TP_CP)),
+        "handoff_exact": all(o["handoff_exact"] for o in outs),
+        "host_copies": sum(o["host_copies"] for o in outs)}))
+    return launches
+
+
 def _kernel_name(mangled: str) -> str:
     """``name<type,ints>`` (or ``name<ints>`` for the bf16-only tensor-core
     kernels) from a mangled kernel name."""
@@ -3995,6 +4298,7 @@ def main() -> int:
                                        trace=arch == "mamba2-1.3b")
               for arch, batch, remat in FAMILY_TRAIN}
     serve_launches = phase_serve_launcher(card)
+    tp_launches = phase_tensor_parallel(card)
     phase_card_vs_cpu()
     phase_card_vs_cpu("granite-moe-1b-a400m", "granite")
     phase_train_card_vs_cpu()
@@ -4028,7 +4332,8 @@ def main() -> int:
         "paged_attention": {"serving_smollm": pa_launches,
                             "serving_granite": granite_launches,
                             "serving_llama4": llama4_launches,
-                            "serve_launcher": serve_launches},
+                            "serve_launcher": serve_launches,
+                            "serving_smollm_tp3": tp_launches},
         "flash_attention_fwd": {"train": fa_launches["flash_attention_fwd"],
                                 "zamba2_prefill": zamba2_fa},
         "flash_attention_dq": {"train": fa_launches["flash_attention_dq"]},

@@ -29,7 +29,8 @@ on the same Port drain machinery:
      map, the MMU page-table snapshot, in-flight/queued requests, the
      sampling seed, and *the actual KV pool pages* — a device-side compact
      gather of the tenant's live pages into a transfer buffer
-     (``repro_torch.serve.paged_model.gather_kv_pages``), plus any payloads the
+     (``ServingEngine.gather_kv``: every KV head, also from a
+     tensor-parallel engine), plus any payloads the
      evict-with-copy pager already holds on the host.
   3. **Restore** — fresh page allocation on the destination MMU
      (``MMU.restore_seqs``), KV payload scattered to the new physical
@@ -408,20 +409,20 @@ def _key_str(key: Tuple) -> str:
 
 def _gather_page_payloads(engine, keys) -> Dict[Tuple, Dict[str, Any]]:
     """Gather KV payloads for a set of MMU share keys: one batched
-    device gather for the ("d", ppage) keys (same compact-gather kernel
-    the full snapshot uses) plus the preserved host payloads for
-    ("h", hslot) keys.  Keys with no materialized bytes ("u" legacy
-    pages, host slots evicted without a pager) are skipped — exactly
-    what a full snapshot would skip."""
-    from repro_torch.serve.paged_model import (flat_page_indices,
-                                               gather_kv_pages)
+    device gather for the ("d", ppage) keys (``engine.gather_kv``, as
+    the full snapshot: every KV head, also from a tensor-parallel
+    source) plus the preserved host payloads for ("h", hslot) keys.
+    Keys with no materialized bytes ("u" legacy pages, host slots
+    evicted without a pager) are skipped — exactly what a full snapshot
+    would skip."""
+    from repro_torch.serve.paged_model import flat_page_indices
     mmu = engine.mmu
     out: Dict[Tuple, Dict[str, Any]] = {}
     dpages = sorted(k[1] for k in keys if k[0] == "d")
     if dpages:
         flat = flat_page_indices(dpages, engine.cfg.n_layers,
                                  mmu.config.n_pages)
-        kv = gather_kv_pages(engine.pools, flat)
+        kv = engine.gather_kv(flat)   # every KV head, also under TP
         L = engine.cfg.n_layers
         kk = kv["k"].reshape(L, len(dpages), *kv["k"].shape[1:])
         vv = kv["v"].reshape(L, len(dpages), *kv["v"].shape[1:])

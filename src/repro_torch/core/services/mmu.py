@@ -704,8 +704,9 @@ class MMU(Service):
         of engine slots — the steady-state decode step reads a device
         tensor that is already there; only rows whose mapping changed
         (alloc/extend/free/evict deltas) are re-uploaded.  ``device``
-        defaults to the CUDA card; tensor-parallel placement waits for
-        the TP slice."""
+        defaults to the CUDA card.  Under tensor parallelism every rank
+        builds its own view of its own (replicated) MMU: the tables are
+        the same on every rank, as the reference's replicated sharding."""
         return DeviceBlockTable(self, n_slots, max_pages, device=device)
 
     def channel_of(self, ppage: int) -> int:

@@ -235,8 +235,8 @@ class TransferEngine:
         to the device (weights-before-serving migration)."""
         if shardings is not None:
             raise NotImplementedError(
-                "sharded migration waits for the tensor-parallel slice of "
-                "the port (ROADMAP item 14)")
+                "sharded migration (shardings=) belongs to the mesh-bound "
+                "launchers, ROADMAP queue 1 item 21")
         t0 = time.perf_counter()
 
         def move(x):
@@ -289,7 +289,11 @@ class CompileCache:
         h.update(name.encode())
         h.update(repr(config_repr).encode())
         if mesh is not None:
-            h.update(repr(mesh).encode())
+            # the mesh's shape and dim names, as the reference keys it; a
+            # DeviceMesh's repr can hold rank-specific state
+            h.update(repr((tuple(zip(mesh.mesh_dim_names,
+                                     (int(s) for s in mesh.shape))),
+                           tuple(mesh.mesh_dim_names))).encode())
         if avals is not None:
             h.update(repr(_spec_repr(avals)).encode())
         return h.hexdigest()[:24]
@@ -407,13 +411,11 @@ class ReconfigController:
 # ============================================================ the layer ====
 class StaticLayer:
     """Host link + reconfig + interrupts; routes everything else upward.
-    ``device=None`` means the CUDA card (raises without one)."""
+    ``device=None`` means the CUDA card (raises without one).  ``mesh``
+    (a ``DeviceMesh``, or None) is stored for the layers above, which key
+    built artifacts by it."""
 
     def __init__(self, mesh=None, *, pcie_gbps: float = 12e9, device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "a device mesh waits for the tensor-parallel slice of the "
-                "port (ROADMAP item 14)")
         self.mesh = mesh
         self.engine = TransferEngine(device)
         self.compile_cache = CompileCache()

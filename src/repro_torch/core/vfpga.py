@@ -167,8 +167,8 @@ class VFpga:
             if (artifact.in_shardings is not None
                     or artifact.out_shardings is not None):
                 raise NotImplementedError(
-                    "sharded app logic waits for the tensor-parallel slice "
-                    "of the port (ROADMAP item 14)")
+                    "sharded app logic (in_shardings/out_shardings) belongs "
+                    "to the mesh-bound launchers, ROADMAP queue 1 item 21")
 
             def build():
                 return build_eager(artifact.fn, artifact.abstract_args)

@@ -8,7 +8,8 @@ Twin of ``repro.launch.train`` with the same flags; it trains on the CUDA
 card unless ``--device`` names another.  ``--compress`` turns on the
 GradCompression service (int8, error feedback); ``--remat`` picks the
 per-layer recomputation policy.  ``--microbatches`` above 1 raises until
-the multi-device slice (the reference reads it only under a mesh).
+the mesh-bound launchers, ROADMAP item 21 (the reference reads it only
+under a mesh).
 """
 from __future__ import annotations
 

@@ -24,8 +24,9 @@ under them), so they stay plain PyTorch on both devices.  The reference's
 caches are functional; here the writes land in place (``index_put_``) and
 the cache tensors are returned, the port's form of a donated buffer.  The
 paged serving path attends through ``repro_torch.serve.paged_model`` and
-the paged-attention kernel.  ``attend_decode_cp`` (context-parallel
-decode) belongs to the tensor-parallel slice (ROADMAP queue 1 item 14).
+the paged-attention kernel.  ``attend_decode_cp`` is the context-parallel
+decode over a KV cache sequence-sharded on a mesh dim: every rank runs it
+on its own block and the softmax statistics meet in three all-reduces.
 """
 from __future__ import annotations
 
@@ -127,6 +128,47 @@ def attend_decode(q, k_cache, v_cache, cache_len):
     pos = torch.arange(k_cache.shape[1], device=q.device)
     return _decode_softmax(q, k_cache, v_cache,
                            pos[None, :] < cache_len.to(q.device)[:, None])
+
+
+def attend_decode_cp(q, k_cache, v_cache, cache_len, mesh, *,
+                     seq_axis: str = "model", collectives=None):
+    """Context-parallel decode attention: the KV cache stays SEQUENCE-
+    sharded on ``seq_axis`` and the softmax is computed distributed (a
+    max, then a sum, of per-shard statistics) instead of gathering the
+    cache.
+
+    Every rank of ``seq_axis`` calls this with its own block, in the same
+    order: q (B,1,H,hd) the same on each of them; caches (B,S_local,K,hd),
+    the rank at coordinate ``r`` holding positions ``[r * S_local, (r + 1)
+    * S_local)``; cache_len (B,) valid entries of the whole sequence.  A
+    batch split over another dim (``data``) needs nothing here: the caller
+    passes its own rows, and rows never meet, so no reduction runs over
+    that dim.  Scores and the ``p . V`` partial accumulate in float32; the
+    max and the two sums go through ``collectives`` (a
+    :class:`~repro_torch.core.services.collectives.CollectiveService`, a
+    fresh one when ``None``)."""
+    from repro_torch.core.services.collectives import CollectiveService
+    svc = collectives if collectives is not None else CollectiveService()
+    b, _, h, hd = q.shape
+    kh = k_cache.shape[2]
+    g = h // kh
+    s_local = k_cache.shape[1]
+    idx = mesh.get_local_rank(seq_axis)
+    axes = (seq_axis,)
+    qc = q.reshape(b, 1, kh, g, hd).float()
+    scores = torch.einsum("bqkgh,bskh->bkgqs", qc,
+                          k_cache.float()) * hd ** -0.5
+    pos = idx * s_local + torch.arange(s_local, device=q.device)
+    mask = pos[None, :] < cache_len.to(q.device)[:, None]
+    scores = torch.where(mask[:, None, None, None, :], scores, NEG_INF)
+    m = svc.all_reduce(scores.amax(dim=-1, keepdim=True), mesh, axes,
+                       op="max")
+    p = torch.exp(scores - m)
+    l = svc.all_reduce(p.sum(dim=-1, keepdim=True), mesh, axes)
+    part = torch.einsum("bkgqs,bskh->bqkgh", p, v_cache.float())
+    out = svc.all_reduce(part, mesh, axes)
+    out = out / l.permute(0, 3, 1, 2, 4).clamp_min(1e-30)
+    return out.reshape(b, 1, h, hd).to(q.dtype)
 
 
 def attend_decode_swa(q, k_cache, v_cache, pos, window: int):

@@ -24,7 +24,7 @@ therefore depends on every token of the group, padding included, exactly
 as in the reference.  The scatter is ``index_add_`` into zeros: every
 destination but the dump row is unique, so it is a copy, and the dump
 row is discarded.  The sharding hints of the reference (``rules``,
-``moe_specs``) belong to the tensor-parallel slice.
+``moe_specs``) belong to the mesh-bound launchers (ROADMAP item 21).
 """
 from __future__ import annotations
 

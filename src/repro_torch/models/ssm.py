@@ -11,7 +11,8 @@ is.  ``ssd_chunked`` is re-exported from ``kernels/ssd/ref.py`` (the
 reverse of the reference's layout, which would be an import cycle here).
 ``mamba_apply``'s scan goes through ``kernels/ssd/ops.ssd``: the
 hand-written CUDA kernel for a CUDA tensor, the plain chunked scan for a
-CPU tensor.  The sharding specs belong to the tensor-parallel slice.
+CPU tensor.  The sharding specs belong to the mesh-bound launchers
+(ROADMAP item 21).
 """
 from __future__ import annotations
 

@@ -559,8 +559,9 @@ def decode_step(params, cfg: ModelConfig, cache: Dict, tokens, pos, *,
     cross-attention and carried unchanged."""
     if cp_mesh is not None:
         raise NotImplementedError(
-            "context-parallel decode (cp_mesh) waits for the tensor-parallel "
-            "slice, ROADMAP queue 1 item 14")
+            "decode_step(cp_mesh=...) belongs to the mesh-bound launchers "
+            "(ROADMAP queue 1 item 21, with launch/steps.py, its one caller); "
+            "attention.attend_decode_cp is ported")
     x = _embed_tokens_decode(params, cfg, tokens, pos)
     if not _uniform(cfg):
         x = _hybrid_decode(params, cfg, cache, x,

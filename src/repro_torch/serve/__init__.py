@@ -1,9 +1,10 @@
 """Paged serving datapath of the port (twin of ``repro.serve``).
 
 Exports what the reference's package does, less its JAX retrace guard
-(``TRACE_COUNTS``: eager PyTorch does not trace) and the disaggregated
-prefill/decode hand-off, which belongs to the tensor-parallel slice
-(ROADMAP queue 1 item 14)."""
+(``TRACE_COUNTS``: eager PyTorch does not trace).  The tensor-parallel
+twins (``serve/tp.py``) and the prefill/decode hand-off
+(``serve/disaggregated.py``) are imported from their modules, as in the
+reference."""
 from repro_torch.serve.engine import Request, ServingEngine
 from repro_torch.serve.gateway import ServingGateway, TokenStream
 from repro_torch.serve.paged_model import (decode_step_paged, make_pools,

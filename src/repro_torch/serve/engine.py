@@ -43,11 +43,26 @@ Hot-path invariants, as in the reference:
     reference container's JAX PRNG key is ignored (greedy streams carry
     over between the two packages).
 
-Not in this port yet: tensor-parallel meshes (the constructor raises for
-``mesh`` and ``collectives``).
+  * **Tensor parallel.**  A ``mesh`` (a ``DeviceMesh``) whose ``model``
+    dim is larger than one builds a :class:`~repro_torch.serve.tp.
+    TPContext`: this rank's weight shards, pools of its KV heads, and a
+    reduction through ``collectives`` after each attention and FFN block.
+    Every rank runs the same engine on the same submits; host state is
+    replicated.  Three rules keep the ranks from diverging: each step the
+    (B,) token vector sampled on model-rank 0 is broadcast over the
+    ``model`` group and every rank advances from it; the step-time samples
+    behind the EWMAs are rank 0's, carried in the same broadcast; every
+    collective is issued from the engine's calling thread, in program
+    order.  The pager and migration gather every head over the group, so
+    the host copy and the wire format are shard-agnostic (a TP tenant
+    migrates to a single-device shell).  An ``admission_hook`` (the
+    gateway's backfill, which reads each rank's own clock) is refused on a
+    TP engine: a rank-consistent front end belongs to the mesh-bound
+    launchers (ROADMAP item 21).
 """
 from __future__ import annotations
 
+import functools
 import time
 from collections import deque
 from dataclasses import dataclass, field
@@ -110,9 +125,12 @@ class ServingEngine:
                  mesh=None, collectives=None, device=None):
         if cfg.ssm is not None or len(cfg.block_pattern) != 1:
             raise ValueError("the paged engine serves attention archs")
-        if mesh is not None or collectives is not None:
-            raise NotImplementedError(
-                "tensor-parallel serving waits for the TP slice of the port")
+        if mesh is not None:
+            from torch.distributed.device_mesh import DeviceMesh
+            if not isinstance(mesh, DeviceMesh):
+                raise TypeError(
+                    "mesh must be a torch.distributed DeviceMesh with named "
+                    f"dims (launch/mesh.py), not {type(mesh).__name__}")
         self.device = resolve_device(device)
         table = params["embed"]["table"]
         if table.device.type != self.device.type:
@@ -145,10 +163,34 @@ class ServingEngine:
         # fires for every emitted token (prefill first tokens included)
         self.admission_hook = None
         self.token_sink = None
+        # Tensor-parallel serving: a mesh with a model dim > 1 shards the
+        # weights and KV pools over its ranks while everything host-side
+        # stays replicated; ``collectives`` (without a mesh: unused, as in
+        # the reference) carries the per-layer partial-sum reductions
+        self.mesh = mesh
+        self.tp = None
+        if mesh is not None and dict(zip(
+                mesh.mesh_dim_names, mesh.shape)).get("model", 1) > 1:
+            from repro_torch.serve.tp import TPContext
+            self.tp = TPContext(cfg, mesh, params, page_size=self.page,
+                                collectives=collectives)
+            self.params = self.tp.params
+            self._decode_step = self.tp.decode_step
+            self._prefill_shared = self.tp.prefill_shared
+            self._prefill_chunk = self.tp.prefill_chunk
+        else:
+            self._decode_step = functools.partial(
+                decode_step_paged, cfg=cfg, page_size=self.page)
+            self._prefill_shared = functools.partial(
+                prefill_shared_paged, cfg=cfg, page_size=self.page)
+            self._prefill_chunk = functools.partial(
+                prefill_chunk_paged, cfg=cfg, page_size=self.page)
         # KV pools in the model's dtype (float32 params -> float32 pools,
-        # as the reference engine keeps them)
-        self.pools = make_pools(cfg, mmu.config.n_pages, self.page,
-                                dtype=table.dtype, device=self.device)
+        # as the reference engine keeps them); under TP this rank's heads
+        self.pools = make_pools(
+            cfg if self.tp is None else self.tp.local_cfg,
+            mmu.config.n_pages, self.page, dtype=table.dtype,
+            device=self.device)
         self.slots: List[Optional[Request]] = [None] * max_batch
         self.queue: deque[Request] = deque()
         self._rid_next = rid_base + 1
@@ -188,13 +230,47 @@ class ServingEngine:
     def _tensor(self, arr, dtype):
         return torch.as_tensor(np.asarray(arr)).to(self.device, dtype)
 
+    # ------------------------------------------------ TP: rank agreement ----
+    def _tp_agree(self, toks: torch.Tensor, t0: float):
+        """Model-rank 0's ``toks`` (int32, on the device) and its seconds
+        since ``t0``, on every rank of the TP group: ONE broadcast of a
+        (n + 1,) int32 vector whose last entry holds the float32 bits of
+        rank 0's time.  Returns (host tokens, rank 0's seconds, the device
+        tokens).  Every rank then advances its host state, and its
+        EWMAs, from the same values."""
+        self._sync()
+        dt = np.asarray([time.perf_counter() - t0], np.float32)
+        buf = torch.cat([toks.to(torch.int32).reshape(-1),
+                         torch.from_numpy(dt.view(np.int32)).to(self.device)])
+        self.tp.broadcast_from_rank0(buf)
+        host = buf.cpu().numpy()
+        return host[:-1], float(host[-1:].view(np.float32)[0]), buf[:-1]
+
+    def gather_kv(self, flat) -> Dict[str, torch.Tensor]:
+        """The pool slots ``flat`` on the device, every KV head (under TP,
+        gathered over the group).  Every export of KV pages goes through
+        here (pager, snapshot, pre-copy rounds), so the wire format holds
+        every head whatever the source's TP degree."""
+        kv = gather_kv_pages(self.pools, flat)
+        if self.tp is not None:
+            kv = {s: self.tp.gather_heads(v) for s, v in kv.items()}
+        return kv
+
+    def scatter_kv(self, flat, data) -> None:
+        """Write full-head payloads into the pool slots ``flat`` (under TP,
+        this rank's heads of them)."""
+        if self.tp is not None:
+            data = {s: self.tp.local_heads(v) for s, v in data.items()}
+        scatter_kv_pages(self.pools, flat, data)
+
     # ------------------------------------------------- evict-with-copy -----
     def _pager_gather(self, ppage: int) -> Dict[str, torch.Tensor]:
-        """Copy one physical page's KV (all layers) to the host — called
-        by the MMU just before it recycles the device page."""
+        """Copy one physical page's KV (all layers, every head) to the
+        host — called by the MMU just before it recycles the device
+        page."""
         flat = flat_page_indices([ppage], self.cfg.n_layers,
                                  self.mmu.config.n_pages)
-        kv = gather_kv_pages(self.pools, flat)
+        kv = self.gather_kv(flat)
         return {"k": kv["k"].cpu(), "v": kv["v"].cpu()}
 
     def _pager_scatter(self, ppage: int, data) -> None:
@@ -203,7 +279,7 @@ class ServingEngine:
         device page (MMU fault-back-in, pre-copy staging)."""
         flat = flat_page_indices([ppage], self.cfg.n_layers,
                                  self.mmu.config.n_pages)
-        scatter_kv_pages(self.pools, flat, weights_from_host(data))
+        self.scatter_kv(flat, weights_from_host(data))
 
     # -------------------------------------------------------------- API ----
     def submit(self, prompt: List[int], max_new_tokens: int = 16, *,
@@ -344,15 +420,18 @@ class ServingEngine:
                 tokens[j] = req.prompt[req.prefill_pos:
                                        req.prefill_pos + chunk]
             i32 = torch.int32
-            prefill_chunk_paged(
+            self._prefill_chunk(
                 self.params, self.pools, self._tensor(tokens, i32),
                 self._tensor(q_lens, i32), self._tensor(q_starts, i32),
-                self._tensor(tables, i32), cfg=self.cfg,
-                page_size=self.page)
+                self._tensor(tables, i32))
             self._sync()
             dt = time.perf_counter() - t0
             self.prefill_s += dt
             self.prefill_computed += n * chunk
+            if self.tp is not None:
+                # the EWMA sample is model-rank 0's
+                _, dt, _ = self._tp_agree(
+                    torch.zeros(0, dtype=i32, device=self.device), t0)
             self.ewma_prefill_s_per_tok = self._ewma(
                 self.ewma_prefill_s_per_tok, dt / (n * chunk))
             self.prefill_obs += 1
@@ -408,22 +487,27 @@ class ServingEngine:
         for j, (_, req, qstart, _) in enumerate(rows):
             tokens[j, :q_lens[j]] = req.prompt[qstart:]
         i32, f32 = torch.int32, torch.float32
-        first = prefill_shared_paged(
+        first = self._prefill_shared(
             self.params, self.pools, self._tensor(tokens, i32),
             self._tensor(q_lens, i32), self._tensor(q_starts, i32),
             self._tensor(write_from, i32), self._tensor(tables, i32),
             self.seed, self._tensor(temps, f32), self._tensor(topks, i32),
             self._tensor(topps, f32), self._tensor(seq_ids, i32),
-            cfg=self.cfg, page_size=self.page,
             filters_on=bool((topks > 0).any() or (topps < 1.0).any()))
-        first = first.cpu().numpy()
-        now = time.perf_counter()
+        if self.tp is None:
+            first = first.cpu().numpy()
+            now = time.perf_counter()
+            sample = now - t0
+        else:
+            # every rank takes model-rank 0's first tokens and time
+            first, sample, _ = self._tp_agree(first, t0)
+            now = time.perf_counter()
         self.prefill_s += now - t0
         for _, req, _, wfrom in rows:
             self.mmu.mark_dirty_range(req.rid, wfrom, len(req.prompt))
         self.ewma_prefill_s_per_tok = self._ewma(
             self.ewma_prefill_s_per_tok,
-            (now - t0) / max(int(q_lens.sum()), 1))
+            sample / max(int(q_lens.sum()), 1))
         self.prefill_obs += 1
         slots_i, srows = [], []
         for j, (i, req, _, _) in enumerate(rows):
@@ -480,6 +564,13 @@ class ServingEngine:
                 health.beat(self.slot)      # watchdog: slot is decoding
         self._settle_io()
         if self.admission_hook is not None:
+            if self.tp is not None:
+                raise NotImplementedError(
+                    "an admission_hook (the gateway) on a tensor-parallel "
+                    "engine: its clock-driven decisions would differ "
+                    "between ranks; a front end that takes them on "
+                    "model-rank 0 belongs to the mesh-bound launchers "
+                    "(ROADMAP queue 1 item 21)")
             self.admission_hook(self)
         self._admit()
         self._prefill_chunks()
@@ -506,18 +597,24 @@ class ServingEngine:
                   self.slots[i].top_k,
                   self.slots[i].top_p,
                   self.slots[i].rid) for i in upd])
-        next_toks, self.dev_lens = decode_step_paged(
+        next_toks, self.dev_lens = self._decode_step(
             self.params, self.pools, tables, self.dev_lens,
             self.dev_tokens, self.seed, self.dev_temps, self.dev_topk,
-            self.dev_topp, self.dev_rids, cfg=self.cfg, page_size=self.page,
+            self.dev_topp, self.dev_rids,
             filters_on=bool((self._topk > 0).any()
                             or (self._topp < 1.0).any()))
-        self.dev_tokens = next_toks
-        # the ONLY per-step device->host copy: the (B,) int32 token vector
-        toks = next_toks.cpu().numpy()
-        dt = time.perf_counter() - t0
+        if self.tp is None:
+            self.dev_tokens = next_toks
+            # the ONLY per-step device->host copy: the (B,) int32 tokens
+            toks = next_toks.cpu().numpy()
+            dt = sample = time.perf_counter() - t0
+        else:
+            # model-rank 0's tokens and step time, broadcast over the group
+            toks, sample, self.dev_tokens = self._tp_agree(next_toks, t0)
+            dt = time.perf_counter() - t0
         self.decode_step_times.append(dt)
-        self.ewma_decode_step_s = self._ewma(self.ewma_decode_step_s, dt)
+        self.ewma_decode_step_s = self._ewma(self.ewma_decode_step_s,
+                                             sample)
         self.decode_obs += 1
         self.steps += 1
         self._submit_step_io(n_live=len(live))
@@ -712,7 +809,7 @@ class ServingEngine:
             flat = flat_page_indices([p["ppage"] for p in pages],
                                      self.cfg.n_layers,
                                      self.mmu.config.n_pages)
-            kv = gather_kv_pages(self.pools, flat)
+            kv = self.gather_kv(flat)
             arrays["kv_k"] = weights_to_host(kv["k"])
             arrays["kv_v"] = weights_to_host(kv["v"])
         if host_pages:
@@ -765,8 +862,7 @@ class ServingEngine:
         L, n_pages = self.cfg.n_layers, self.mmu.config.n_pages
         if header["pages"]:
             new_pps = [by_old[p["ppage"]] for p in header["pages"]]
-            scatter_kv_pages(self.pools,
-                             flat_page_indices(new_pps, L, n_pages),
+            self.scatter_kv(flat_page_indices(new_pps, L, n_pages),
                              {"k": weights_from_host(arrays["kv_k"]),
                               "v": weights_from_host(arrays["kv_v"])})
         for key, data in (arrays.get("host_pages") or {}).items():

@@ -145,12 +145,19 @@ def _ffn(lp, cfg: ModelConfig, h):
 
 
 def _prefill_layers(params, pools, tokens, q_lens, q_starts, write_from,
-                    tables, *, cfg: ModelConfig, page_size: int):
+                    tables, *, cfg: ModelConfig, page_size: int,
+                    psum_attn=None, psum_mlp=None):
     """The shared body of both prefill entry points: run the transformer
     over ``tokens`` at absolute positions ``q_starts + arange(T)``, write
     KV at positions >= ``write_from`` into mapped pages, and attend
     causally through the block tables.  Returns the final hidden states
-    before the final norm, (N, T, D)."""
+    before the final norm, (N, T, D).
+
+    ``psum_attn`` / ``psum_mlp``: optional reduction hooks applied to the
+    attention out-projection and the FFN output before the residual add
+    (the tensor-parallel path sums its partials there,
+    ``repro_torch.serve.tp``); head counts come from ``cfg``, which is the
+    rank's local config under TP."""
     dev = pools["k"].device
     tokens, tables = tokens.to(dev).long(), tables.to(dev).long()
     q_lens, q_starts = q_lens.to(dev).long(), q_starts.to(dev).long()
@@ -202,18 +209,26 @@ def _prefill_layers(params, pools, tokens, q_lens, q_starts, write_from,
         att = torch.einsum("nkgts,nskd->ntkgd", p, vg.float())
         att = torch.where(any_ok[:, :, None, None, None], att, 0.0)
         att = att.reshape(n, t, cfg.n_heads, -1).to(x.dtype)
-        x = x + attention.out_proj(lp["attn"], cfg, att)
+        x = _residual(x, attention.out_proj(lp["attn"], cfg, att), psum_attn)
         h = layers.norm_apply(lp["norm2"], x, cfg.norm_eps)
-        x = x + _ffn(lp, cfg, h)
+        x = _residual(x, _ffn(lp, cfg, h), psum_mlp)
     return x
 
 
+def _residual(x, out, hook):
+    """``x + hook(out)``: the block's partial output reduced first where a
+    hook is given."""
+    return x + (out if hook is None else hook(out))
+
+
 def _prefill_logits(params, pools, tokens, q_lens, q_starts, write_from,
-                    tables, *, cfg: ModelConfig, page_size: int):
+                    tables, *, cfg: ModelConfig, page_size: int,
+                    psum_attn=None, psum_mlp=None):
     """Prefill body plus the LM head at each row's last query: (N, V)."""
     dev = pools["k"].device
     x = _prefill_layers(params, pools, tokens, q_lens, q_starts, write_from,
-                        tables, cfg=cfg, page_size=page_size)
+                        tables, cfg=cfg, page_size=page_size,
+                        psum_attn=psum_attn, psum_mlp=psum_mlp)
     x = layers.norm_apply(params["final_norm"], x, cfg.norm_eps)
     last = x[torch.arange(x.shape[0], device=dev),
              (q_lens.to(dev).long() - 1).clamp_min(0)]      # (N,D)
@@ -224,7 +239,8 @@ def prefill_shared_paged(params, pools, tokens, q_lens, q_starts,
                          write_from, tables, seed: int, temperatures,
                          top_k=None, top_p=None, seq_ids=None, *,
                          cfg: ModelConfig, page_size: int,
-                         filters_on: Optional[bool] = None):
+                         filters_on: Optional[bool] = None,
+                         psum_attn=None, psum_mlp=None):
     """Suffix prefill for (prefix-shared) admissions; samples each row's
     first token.
 
@@ -238,12 +254,15 @@ def prefill_shared_paged(params, pools, tokens, q_lens, q_starts,
 
     KV lands in ``pools`` in place.  Sampling keys are counter-based on
     ``(seq_id, prompt length)``; without ``seq_ids`` every row uses
-    seq_id 0.  Returns first tokens (N,) int32 on the pools' device.
+    seq_id 0.  ``psum_attn``/``psum_mlp`` are the TP reduction hooks (see
+    :func:`_prefill_layers`).  Returns first tokens (N,) int32 on the
+    pools' device.
     """
     dev = pools["k"].device
     logits = _prefill_logits(params, pools, tokens, q_lens, q_starts,
                              write_from, tables, cfg=cfg,
-                             page_size=page_size)
+                             page_size=page_size, psum_attn=psum_attn,
+                             psum_mlp=psum_mlp)
     q_lens, q_starts = q_lens.to(dev).long(), q_starts.to(dev).long()
     if seq_ids is None:
         seq_ids = torch.zeros_like(q_lens)
@@ -255,13 +274,16 @@ def prefill_shared_paged(params, pools, tokens, q_lens, q_starts,
 
 
 def prefill_chunk_paged(params, pools, tokens, q_lens, q_starts, tables, *,
-                        cfg: ModelConfig, page_size: int) -> None:
+                        cfg: ModelConfig, page_size: int, psum_attn=None,
+                        psum_mlp=None) -> None:
     """One INTERMEDIATE chunk of a streaming prefill: KV only — no final
     norm, no logits, no random numbers.  Row i runs
     ``prompt[q_starts[i]:][:q_lens[i]]`` and writes its KV at those
-    absolute positions, in place; earlier positions are never written."""
+    absolute positions, in place; earlier positions are never written.
+    ``psum_attn``/``psum_mlp``: the TP reduction hooks."""
     _prefill_layers(params, pools, tokens, q_lens, q_starts, q_starts,
-                    tables, cfg=cfg, page_size=page_size)
+                    tables, cfg=cfg, page_size=page_size,
+                    psum_attn=psum_attn, psum_mlp=psum_mlp)
 
 
 def prefill_paged(params, pools, tokens, lens, tables, seed: int,
@@ -294,8 +316,10 @@ def prefill_paged(params, pools, tokens, lens, tables, seed: int,
 
 
 def _decode_logits(params, pools, tables, lens, last_tokens, *,
-                   cfg: ModelConfig, page_size: int):
-    """The decode step's layers, KV appends and LM head: (B, V) logits."""
+                   cfg: ModelConfig, page_size: int, psum_attn=None,
+                   psum_mlp=None):
+    """The decode step's layers, KV appends and LM head: (B, V) logits.
+    ``psum_attn``/``psum_mlp``: the TP reduction hooks."""
     maxp = tables.shape[1]
     n_pages, sink = _geometry(cfg, pools)
     x = layers.embed_lookup(params["embed"], last_tokens.long()[:, None])
@@ -320,9 +344,10 @@ def _decode_logits(params, pools, tables, lens, last_tokens, *,
         vp[dst, off] = v[:, 0].to(vp.dtype)
         att = paged_decode(q[:, 0].contiguous(), kp[base:base + n_pages],
                            vp[base:base + n_pages], tables, kv_lens)
-        x = x + attention.out_proj(lp["attn"], cfg, att[:, None])
+        x = _residual(x, attention.out_proj(lp["attn"], cfg, att[:, None]),
+                      psum_attn)
         h = layers.norm_apply(lp["norm2"], x, cfg.norm_eps)
-        x = x + _ffn(lp, cfg, h)
+        x = _residual(x, _ffn(lp, cfg, h), psum_mlp)
     x = layers.norm_apply(params["final_norm"], x, cfg.norm_eps)
     return lm_logits(params, cfg, x)[:, 0, :cfg.vocab_size]
 
@@ -330,7 +355,8 @@ def _decode_logits(params, pools, tables, lens, last_tokens, *,
 def decode_step_paged(params, pools, tables, lens, last_tokens, seed: int,
                       temperatures, top_k=None, top_p=None, seq_ids=None, *,
                       cfg: ModelConfig, page_size: int,
-                      filters_on: Optional[bool] = None):
+                      filters_on: Optional[bool] = None,
+                      psum_attn=None, psum_mlp=None):
     """One fused decode step for the whole running batch.
 
     last_tokens (B,) int  — last sampled token per row;
@@ -342,10 +368,13 @@ def decode_step_paged(params, pools, tables, lens, last_tokens, seed: int,
     KV appends land in ``pools`` in place.  Returns ``(next_tokens (B,)
     int32, new_lens (B,) int32)``; the only host traffic a caller needs
     per step is reading back the token vector.  On the card each layer
-    launches the paged-attention kernel once.
+    launches the paged-attention kernel once.  ``psum_attn``/``psum_mlp``
+    are the TP reduction hooks (``cfg`` is then the rank's local config,
+    so the kernel runs on the rank's head slice).
     """
     logits = _decode_logits(params, pools, tables, lens, last_tokens,
-                            cfg=cfg, page_size=page_size)
+                            cfg=cfg, page_size=page_size,
+                            psum_attn=psum_attn, psum_mlp=psum_mlp)
     pos = lens.long()
     if seq_ids is None:
         seq_ids = torch.zeros_like(pos)

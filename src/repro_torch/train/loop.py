@@ -25,7 +25,8 @@ and the checkpoint carry as ``slots/<i>/...``).  On the card every
 attention forward and backward runs the flash-attention kernels, and every
 mamba layer's scan the SSD kernels, forward and backward.  The
 mesh bundle and microbatching (which the reference reads only under a
-mesh) wait for the multi-device slice and raise ``NotImplementedError``.
+mesh) belong to the mesh-bound launchers (ROADMAP queue 1 item 21) and
+raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -93,12 +94,13 @@ class Trainer:
                  tcfg: TrainConfig, mesh=None, *, device=None):
         if mesh is not None:
             raise NotImplementedError(
-                "Trainer(mesh=...): the mesh bundle waits for the "
-                "multi-device slice")
+                "Trainer(mesh=...): the mesh bundle belongs to the "
+                "mesh-bound launchers (ROADMAP queue 1 item 21)")
         if tcfg.microbatches != 1:
             raise NotImplementedError(
-                "TrainConfig.microbatches > 1 waits for the multi-device "
-                "slice (the reference reads it only under a mesh)")
+                "TrainConfig.microbatches > 1 belongs to the mesh-bound "
+                "launchers, ROADMAP queue 1 item 21 (the reference reads "
+                "it only under a mesh)")
         self.cfg = cfg
         self.shape = shape
         self.tcfg = tcfg

@@ -67,6 +67,7 @@ CASES = [                                 # b, h, kh, d, page, maxp, npages
     (2, 16, 2, 128, 16, 20, 64),          # G 8: qwen2, chameleon
     (2, 20, 2, 64, 16, 12, 32),           # G 10: two blocks of heads
     (2, 4, 4, 64, 16, 24, 64),            # G 1, several splits
+    (16, 3, 1, 64, 16, 64, 2048),         # smollm at TP 3: 1 KV head a rank
 ]
 
 

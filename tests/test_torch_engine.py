@@ -219,12 +219,18 @@ def test_submit_rejects_out_of_vocab_tokens(served):
 
 
 def test_later_slices_raise(served):
+    """The tensor-parallel slice has landed: a ``mesh`` that is not a
+    ``DeviceMesh`` is refused by type, and ``collectives`` without a mesh
+    is accepted and unused, as in the reference (the TP twins are in
+    ``tests/test_torch_mesh_serving.py``)."""
     cfg, params = served[2], served[3]
-    for kw in ({"mesh": object()}, {"collectives": object()}):
-        with pytest.raises(NotImplementedError):
-            ServingEngine(cfg, params, MMU(MMUConfig(page_size=8,
-                                                     n_pages=16)),
-                          device="cpu", **kw)
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        ServingEngine(cfg, params, MMU(MMUConfig(page_size=8, n_pages=16)),
+                      device="cpu", mesh=object())
+    from repro_torch.core.services.collectives import CollectiveService
+    eng = ServingEngine(cfg, params, MMU(MMUConfig(page_size=8, n_pages=16)),
+                        device="cpu", collectives=CollectiveService())
+    assert eng.tp is None and eng.mesh is None
     # shell binding is no longer a later slice: the engine binds to the
     # slot's port and registers with the shell
     from repro_torch.core import Shell, ShellConfig

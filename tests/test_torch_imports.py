@@ -71,3 +71,33 @@ def test_static_check_tells_repro_from_repro_torch():
     assert _TEXT.search("import jax.numpy as jnp\n")
     assert not _TEXT.search("from repro_torch.serve import x\n")
     assert not _TEXT.search("import repro_torch\n")
+
+
+_TP_CHILD = r"""
+import importlib, importlib.abc, sys
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "repro"):
+            raise ImportError(f"blocked import of {name}")
+        return None
+
+sys.meta_path.insert(0, Block())
+for n in ("repro_torch.launch.mesh", "repro_torch.models.sharding",
+          "repro_torch.serve.tp", "repro_torch.serve.disaggregated"):
+    importlib.import_module(n)
+import torch.distributed as dist
+print("initialized" if dist.is_initialized() else "no process group")
+"""
+
+
+def test_tp_modules_import_alone_and_start_no_process_group():
+    """The tensor-parallel slice's modules import with ``jax`` and
+    ``repro`` blocked, and importing ``launch/mesh`` creates no process
+    group (it defines functions; ``run_ranks`` starts ranks on a call)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
+    out = subprocess.run([sys.executable, "-c", _TP_CHILD], env=env,
+                         capture_output=True, text=True, timeout=120,
+                         cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "no process group"

@@ -165,6 +165,6 @@ def test_dense_cache_layout_and_refusals(smollm):
     assert c["v"].dtype == torch.bfloat16
     ring = get_config("h2o-danube-3-4b").reduced()
     assert T.init_cache(ring, 1, 500, device="cpu")["k"].shape[2] == 64
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(NotImplementedError, match="item 21"):
         T.decode_step(params, cfg, c, torch.zeros(2, 1, dtype=torch.long),
                       torch.zeros(2, dtype=torch.long), cp_mesh=object())

@@ -271,6 +271,6 @@ def test_dense_attention_cache_waits_for_its_slice():
     cfg = get_config("smollm-135m").reduced()
     c = T.init_cache(cfg, 1, 8, device="cpu")
     assert set(c) == {"k", "v"} and c["k"].shape[:3] == (cfg.n_layers, 1, 8)
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(NotImplementedError, match="item 21"):
         T.decode_step({}, cfg, c, torch.zeros(1, 1, dtype=torch.long),
                       torch.zeros(1), cp_mesh=object())
