@@ -333,7 +333,10 @@ FA_CASES = [(2, 4, 2, 256, 256, 64, True, 0),
             (2, 32, 8, 2048, 2048, 120, True, 0),   # h2o-danube-3-4b
             (1, 32, 8, 4200, 4200, 120, True, 4096),  # its window, phase 13
             (4, 9, 3, 300, 300, 64, True, 0),       # phase 13: smollm fp32
-            (8, 9, 3, 512, 512, 64, True, 0)]       # phase 13: smollm bf16
+            (8, 9, 3, 512, 512, 64, True, 0),       # phase 13: smollm bf16
+            (8, 3, 1, 2048, 2048, 64, True, 0),     # phase 20: TP 3 bf16
+            (8, 3, 1, 512, 512, 64, True, 0),       # phase 20: TP 3 fp32
+            (4, 9, 3, 2048, 2048, 64, True, 0)]     # phase 20: a data rank
 # phase 15: zamba2's shared block in its two prefill calls
 ZAMBA2_FA, ZAMBA2_FA_RAGGED = [(n, 32, 32, s, s, 80, True, 0)
                                for n, s in ZAMBA2_PROMPTS]
@@ -347,7 +350,11 @@ BWD_CASES = [(1, 4, 2, 128, 128, 64, True, 0),
              (2, 4, 2, 200, 200, 80, True, 0),      # D 80
              (1, 4, 1, 130, 130, 120, True, 64),    # D 120, window
              (2, 32, 8, 2048, 2048, 120, True, 0),  # h2o-danube-3-4b
-             (2, 4, 2, 37, 203, 64, False, 0)]    # small, ragged, Sq != Sk
+             (2, 4, 2, 37, 203, 64, False, 0),    # small, ragged, Sq != Sk
+             (8, 3, 1, 2048, 2048, 64, True, 0),  # phase 20: TP 3 bf16
+             (8, 3, 1, 512, 512, 64, True, 0),    # phase 20: TP 3 fp32
+             (4, 9, 3, 2048, 2048, 64, True, 0),  # phase 20: a data rank
+             (2, 9, 3, 2048, 2048, 64, True, 0)]  # phase 20: a microbatch
 FA_MAIN = (8, 9, 3, 2048, 2048, 64, True, 0)
 TRAIN_STEPS, TRAIN_FAIL_AT, TRAIN_CKPT_EVERY = 20, 12, 5
 TRAIN_PROFILE_STEPS = 5
@@ -475,6 +482,33 @@ TP_TIMEOUT_S, TP_DEADLINE_S = 60, 240
 TP_CP = (4, 9, 3, 64, 4096)                # batch, H, K, head dim, sequence
 TP3_SHAPE = (TP_REQUESTS, 3, 1, 64, 16, 64, TP_MMU["n_pages"])
 TP2_SHAPE = (TP_REQUESTS, 9, 3, 64, 16, 64, TP_MMU["n_pages"])
+
+# phase 20: the mesh-bound launchers.  ``Trainer(mesh=...)`` on full-width
+# smollm-135m, ranks on cuda:0 over gloo as in phase 19 (every time is
+# gloo staging through the host on one card, not a TP or DP speed): a
+# (data 2, model 1) mesh, a (1, 3) mesh (3 query / 1 KV heads and d_ff 512
+# a rank, the flash kernels at the local heads) and (2, 1) with 2
+# microbatches; MESH_STEPS bf16 steps at MESH_SEQ x MESH_BATCH (fp32
+# masters), losses within MESH_BF16_ATOL of the single-process Trainer's
+# on the same card and seed, then MESH_STEPS fp32 steps at MESH_FP32_SEQ x
+# MESH_BATCH: losses within 1e-4, every rank's parameter shards within 2
+# x the summed learning rates + 1e-6 of the single-process run's (phase
+# 6's rule), and the norm of their difference within MESH_PARAM_RTOL of
+# the norm of that run's own update (p_end - p_start) on the same
+# elements: one AdamW step moves an element by about lr whatever its
+# gradient, so the first rule alone misses a wrong gradient.  Each rank's activations at 2048 x 8 are ~5.2 GB a row whole
+# (phase 5's 44.3 GB peak over 8 rows), ~42% of that at TP 3's local
+# heads and d_ff: ~21 GB a rank at (2, 1), ~19 GB at (1, 3), three ranks
+# ~57 GB of the 80.  Then context-parallel decode: the prefill and decode
+# bundles (``context_parallel=True``) on a (1, 4) mesh, fp32, MESH_CP_ROWS
+# prompts of MESH_CP_PROMPT tokens and MESH_CP_STEPS teacher-forced
+# steps, logits within 1e-4 of the single-process ``decode_step``.
+MESH_SEQ, MESH_BATCH, MESH_STEPS, MESH_SEED = 2048, 8, 3, 20
+MESH_FP32_SEQ = 512
+MESH_BF16_ATOL, MESH_FP32_ATOL, MESH_PARAM_RTOL = 2e-2, 1e-4, 1e-2
+MESH_TRAIN = [("2x1", 2, 1, 1), ("1x3", 1, 3, 1), ("2x1_mb2", 2, 1, 2)]
+MESH_CP_ROWS, MESH_CP_PROMPT, MESH_CP_STEPS, MESH_CP_WORLD = 4, 1024, 32, 4
+MESH_TIMEOUT_S, MESH_DEADLINE_S = 120, 300
 
 def check(cond: bool, msg: str) -> None:
     if not cond:
@@ -4209,6 +4243,367 @@ def phase_tensor_parallel(card):
     return launches
 
 
+def _smoke_trainer(cfg, seq, bf16, ckpt, mesh=None, dev="cuda", mb=1):
+    """Phase 20's Trainer: on ``mesh`` (a rank's), or the single-process
+    reference when None."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.loop import TrainConfig, Trainer
+    return Trainer(
+        cfg, ShapeConfig("chip_smoke_mesh", "train", seq, MESH_BATCH),
+        TrainConfig(steps=MESH_STEPS, log_every=1, ckpt_every=0,
+                    ckpt_dir=ckpt, seed=MESH_SEED, microbatches=mb,
+                    compute_dtype=torch.bfloat16 if bf16 else None,
+                    param_dtype=torch.float32,
+                    opt=AdamWConfig(warmup_steps=1,
+                                    total_steps=MESH_STEPS)),
+        mesh=mesh, device=dev)
+
+
+def _timed_steps(tr):
+    """Wrap ``tr.step_fn`` so each step's wall (synchronized) is kept."""
+    step_fn, ms = tr.step_fn, []
+
+    def timed(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step_fn(*args)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    tr.step_fn = timed
+    return ms
+
+
+def mesh_train_rank(rank, world, dev, meshes, want_path):
+    """One rank of phase 20's mesh Trainers, one run of
+    :func:`_mesh_train` for each ``(name, data, model, microbatches)`` of
+    ``meshes`` (every one of ``world`` ranks, so one start of the ranks
+    serves them all).  Returns {name: its result}."""
+    return {name: _mesh_train(rank, dev, data, model, mb, want_path)
+            for name, data, model, mb in meshes}
+
+
+def _mesh_train(rank, dev, data, model, mb, want_path):
+    """MESH_STEPS bf16 steps at MESH_SEQ (launches by kernel, the flash
+    calls' head counts, step walls, collectives and peak memory), then
+    MESH_STEPS fp32 steps at MESH_FP32_SEQ, this rank's parameter shards
+    held to ``local_shard`` of the single-process run's (read from
+    ``want_path``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import attention
+    from repro_torch.models.sharding import flatten_specs, local_shard
+    from repro_torch.optim import adamw
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("smollm-135m")
+    mesh = make_host_mesh(data, model, device="cuda")
+    heads, base = set(), attention.ops.mha_fused
+
+    def spy(q, k, v, *args, **kw):
+        heads.add((q.shape[0], q.shape[1], k.shape[1], q.shape[2]))
+        return base(q, k, v, *args, **kw)
+
+    out = {"rank": rank, "coords": tuple(mesh.get_local_rank(d)
+                                         for d in ("data", "model"))}
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    attention.ops.mha_fused = spy
+    try:
+        for bf16 in (True, False):
+            seq = MESH_SEQ if bf16 else MESH_FP32_SEQ
+            tr = _smoke_trainer(cfg, seq, bf16, ckpt, mesh, dev, mb)
+            ms = _timed_steps(tr)
+            heads.clear()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _zero_counts()
+            tr.run()
+            torch.cuda.synchronize()
+            res = {"losses": [m["loss"] for m in tr.metrics_log],
+                   "lr_sum": sum(m["lr"] for m in tr.metrics_log),
+                   "step_ms": ms, "launches": _variant_counts(),
+                   "heads": sorted(heads),
+                   "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                   "traffic": {f"{op}/{g}": v for (op, g), v in
+                               tr.collectives.traffic.items()},
+                   "host_copies": tr.collectives.host_copies}
+            if not bf16:
+                # this rank's shards against the single-process run's:
+                # the largest difference, and the difference's norm over
+                # the norm of that run's own update on the same elements
+                want = torch.load(want_path)
+                specs = flatten_specs(tr._pspecs["params"])
+                err, diff2, upd2 = 0.0, 0.0, 0.0
+                for k, x in adamw.flatten(tr.params).items():
+                    end, start = (local_shard(want[w][k], mesh, specs[k])
+                                  .to(x.device).double()
+                                  for w in ("end", "start"))
+                    d = x.double() - end
+                    err = max(err, float(d.abs().max()))
+                    diff2 += float((d * d).sum())
+                    upd2 += float(((end - start) ** 2).sum())
+                res["param_err"] = err
+                res["param_rel_err"] = math.sqrt(diff2 / upd2)
+            out["bf16" if bf16 else "fp32"] = res
+            tr.prefetch.stop()
+            del tr
+            torch.cuda.empty_cache()
+    finally:
+        attention.ops.mha_fused = base
+        shutil.rmtree(ckpt, ignore_errors=True)
+    return out
+
+
+def _single_trainer(cfg, seq, bf16, ckpt):
+    """The single-process Trainer on the card: phase 20's reference.
+    Returns its losses, step walls, and its parameters before and after
+    the run (on the host)."""
+    from repro_torch.optim import adamw
+    tr = _smoke_trainer(cfg, seq, bf16, ckpt)
+    ms = _timed_steps(tr)
+
+    def host():
+        return {k: v.detach().cpu().clone()
+                for k, v in adamw.flatten(tr.params).items()}
+    start = host()
+    tr.run()
+    losses = [m["loss"] for m in tr.metrics_log]
+    params = {"start": start, "end": host()}
+    tr.prefetch.stop()
+    del tr
+    torch.cuda.empty_cache()
+    return losses, params, ms
+
+
+def mesh_cp_rank(rank, world, dev, prompts, forced):
+    """One rank of phase 20's context-parallel decode: the prefill bundle
+    then MESH_CP_STEPS decode-bundle steps (``context_parallel=True``)
+    fed the single-process run's tokens, fp32, on a (1, world) mesh.
+    Returns this rank's vocabulary block of every step's logits."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.services.collectives import CollectiveService
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import (make_decode_bundle,
+                                          make_prefill_bundle)
+    from repro_torch.models.sharding import flatten_specs, local_shard
+    from repro_torch.optim import adamw
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("smollm-135m")
+    mesh = make_host_mesh(1, world, device="cuda")
+    svc = CollectiveService()
+    max_len = MESH_CP_PROMPT + MESH_CP_STEPS
+    kw = dict(param_dtype=torch.float32, cache_dtype=torch.float32,
+              collectives=svc)
+    rows = prompts.shape[0]
+    pre = make_prefill_bundle(cfg, ShapeConfig("p", "prefill", max_len, rows),
+                              mesh, **kw)
+    dec = make_decode_bundle(cfg, ShapeConfig("d", "decode", max_len, rows),
+                             mesh, context_parallel=True, **kw)
+    full = _tp_weights(cfg, torch.float32)
+    specs = flatten_specs(pre.in_shardings[0])
+    params = adamw.unflatten({k: local_shard(x, mesh, specs[k].spec)
+                              for k, x in adamw.flatten(full).items()})
+    del full
+    def traffic():
+        """The service's counts so far, then zeroed."""
+        out = {f"{op}/{g}": list(v) for (op, g), v in svc.traffic.items()}
+        svc.traffic.clear()
+        return out
+
+    logits, cache = pre.jitted()(
+        params, {"tokens": torch.as_tensor(prompts, device=dev)})
+    blocks, ms, moved = [logits.cpu().numpy()], [], {"prefill": traffic()}
+    pos = torch.full((rows,), MESH_CP_PROMPT, dtype=torch.int32, device=dev)
+    for t in range(MESH_CP_STEPS):
+        tok = torch.as_tensor(forced[t], device=dev)[:, None].int()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = dec.jitted()(params, cache, tok, pos)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        blocks.append(logits.cpu().numpy())
+        pos = pos + 1
+        if t == 0:
+            moved["first_decode"] = traffic()
+    moved["later_decode"] = traffic()
+    return {"rank": rank, "logits": np.stack(blocks), "step_ms": ms,
+            "cache_seq": int(cache["k"].shape[2]),
+            "logits_spec": tuple(dec.out_shardings[0].spec),
+            "traffic": moved}
+
+
+def _per_step(traffic, steps):
+    """Collective result bytes a step by operation, from a service's
+    ``traffic`` ({"op/group": [calls, bytes]})."""
+    out = {}
+    for key, (n, nbytes) in traffic.items():
+        op = key.split("/")[0]
+        out[op] = out.get(op, 0) + nbytes / steps
+    return out
+
+
+def phase_mesh_launchers(card):
+    """Phase 20: ``Trainer(mesh=...)`` on three meshes and the
+    context-parallel decode bundle (see MESH_SEQ).  Returns rank 0's flash
+    launches by mesh (the bf16 run's)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.models import transformer as T
+    cfg = get_config("smollm-135m")
+    t_phase = time.perf_counter()
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    want_path = os.path.join(ckpt, "fp32_params.pt")
+    try:
+        gc.collect()
+        torch.cuda.empty_cache()
+        ref_bf16, _, ref_ms = _single_trainer(cfg, MESH_SEQ, True, ckpt)
+        ref_fp32, params32, _ = _single_trainer(cfg, MESH_FP32_SEQ, False,
+                                                ckpt)
+        torch.save(params32, want_path)
+        del params32
+        kw = dict(backend="gloo", device="cuda:0", timeout_s=MESH_TIMEOUT_S,
+                  deadline_s=MESH_DEADLINE_S)
+        launches, report, runs = {}, {}, {}
+        for world in sorted({d * m for _, d, m, _ in MESH_TRAIN}):
+            meshes = [x for x in MESH_TRAIN if x[1] * x[2] == world]
+            t0 = time.perf_counter()
+            outs = run_ranks(mesh_train_rank, world, meshes, want_path, **kw)
+            for name, *_ in meshes:
+                runs[name] = ([o[name] for o in outs],
+                              time.perf_counter() - t0)
+        for name, data, model, mb in MESH_TRAIN:
+            outs, ranks_s = runs[name]
+            local = (cfg.n_heads // model, cfg.n_kv_heads // model)
+            rows = MESH_BATCH // data // mb
+            for o in outs:
+                tag = f"mesh {name} rank {o['rank']}"
+                b, f = o["bf16"], o["fp32"]
+                check(all(math.isfinite(x) for x in b["losses"]),
+                      f"{tag}: non-finite bf16 loss {b['losses']}")
+                err = max(abs(x - y) for x, y in zip(b["losses"], ref_bf16))
+                b["loss_err"] = err
+                check(err <= MESH_BF16_ATOL,
+                      f"{tag}: bf16 losses {b['losses']} vs {ref_bf16}")
+                n = cfg.n_layers * MESH_STEPS * mb
+                check(b["launches"] == {
+                    "fwd_wgmma": n, "fwd_fma": 0, "dq_wgmma": n, "dq_fma": 0,
+                    "dkv_wgmma": n, "dkv_fma": 0},
+                    f"{tag}: bf16 flash launches {b['launches']}, not {n} "
+                    "tensor-core each")
+                check(b["heads"] == [(rows, local[0], local[1], MESH_SEQ)],
+                      f"{tag}: flash calls at (rows, H, K, S) {b['heads']}, "
+                      f"not {(rows, *local, MESH_SEQ)}")
+                ferr = max(abs(x - y) for x, y in zip(f["losses"], ref_fp32))
+                f["loss_err"] = ferr
+                check(ferr <= MESH_FP32_ATOL,
+                      f"{tag}: fp32 losses {f['losses']} vs {ref_fp32}")
+                p_tol = 2 * f["lr_sum"] + 1e-6
+                check(f["param_err"] <= p_tol,
+                      f"{tag}: fp32 params differ by {f['param_err']} > "
+                      f"{p_tol}")
+                check(f["param_rel_err"] <= MESH_PARAM_RTOL,
+                      f"{tag}: fp32 params differ by {f['param_rel_err']} "
+                      f"of the single-process update > {MESH_PARAM_RTOL}")
+                check(f["launches"]["fwd_fma"] == n
+                      and f["launches"]["fwd_wgmma"] == 0,
+                      f"{tag}: fp32 flash launches {f['launches']}")
+            r0 = outs[0]["bf16"]
+            launches[name] = {"flash_attention_fwd": r0["launches"]
+                              ["fwd_wgmma"],
+                              "flash_attention_dq": r0["launches"]["dq_wgmma"],
+                              "flash_attention_dkv": r0["launches"]
+                              ["dkv_wgmma"]}
+            st = np.asarray(r0["step_ms"])
+            report[name] = {
+                "ranks": data * model, "microbatches": mb,
+                "local_heads": list(local), "rows_per_call": rows,
+                "step_ms_p50": float(np.percentile(st, 50)),
+                "step_ms": r0["step_ms"],
+                "bf16_loss_max_abs_err": max(o["bf16"]["loss_err"]
+                                             for o in outs),
+                "fp32_loss_max_abs_err": max(o["fp32"]["loss_err"]
+                                             for o in outs),
+                "fp32_param_max_abs_err": max(o["fp32"]["param_err"]
+                                              for o in outs),
+                "fp32_param_atol": 2 * outs[0]["fp32"]["lr_sum"] + 1e-6,
+                "fp32_param_err_of_update": max(o["fp32"]["param_rel_err"]
+                                                for o in outs),
+                "fp32_param_rtol": MESH_PARAM_RTOL,
+                "collective_bytes_per_step": _per_step(r0["traffic"],
+                                                       MESH_STEPS),
+                "peak_gb_per_rank": [o["bf16"]["peak_gb"] for o in outs],
+                "host_copies": [o["bf16"]["host_copies"] for o in outs],
+                "ranks_s": ranks_s}
+        print("[20] " + json.dumps({
+            "card": card, "model": "smollm-135m (random weights, fp32 "
+            "masters, bf16 compute)", "seq_len": MESH_SEQ,
+            "global_batch": MESH_BATCH, "steps": MESH_STEPS,
+            "ranks_on": "cuda:0, gloo",
+            "single_process": {"losses": ref_bf16,
+                               "step_ms_p50": float(np.median(ref_ms))},
+            "meshes": report,
+            "note": "step times are gloo staging through the host on one "
+                    "card, with no TP or DP speed"}))
+
+        # context-parallel decode: the single-process reference
+        gen = torch.Generator().manual_seed(MESH_SEED)
+        prompts = torch.randint(3, cfg.vocab_size,
+                                (MESH_CP_ROWS, MESH_CP_PROMPT), generator=gen)
+        full = _tp_weights(cfg, torch.float32)
+        with torch.no_grad():
+            logits, cache = T.prefill(full, cfg, prompts.cuda(),
+                                      MESH_CP_PROMPT + MESH_CP_STEPS,
+                                      cache_dtype=torch.float32)
+            want, forced = [logits.cpu().numpy()], []
+            pos = torch.full((MESH_CP_ROWS,), MESH_CP_PROMPT, device="cuda")
+            for _ in range(MESH_CP_STEPS):
+                tok = logits.argmax(-1)
+                forced.append(tok.cpu().numpy())
+                logits, cache = T.decode_step(full, cfg, cache, tok[:, None],
+                                              pos)
+                want.append(logits.cpu().numpy())
+                pos = pos + 1
+        del full, cache, logits
+        torch.cuda.empty_cache()
+        want = np.stack(want)
+        t0 = time.perf_counter()
+        outs = run_ranks(mesh_cp_rank, MESH_CP_WORLD, prompts.numpy(),
+                         forced, **kw)
+        ranks_s = time.perf_counter() - t0
+        blk = cfg.padded_vocab // MESH_CP_WORLD
+        got = np.concatenate([o["logits"] for o in outs], axis=-1)
+        cp_err = float(np.abs(got[..., :cfg.padded_vocab] - want).max())
+        for o in outs:
+            check(o["logits_spec"][1] == "model"
+                  and o["logits"].shape[-1] == blk,
+                  f"cp rank {o['rank']}: logits block {o['logits'].shape}")
+            check(o["cache_seq"] == (MESH_CP_PROMPT + MESH_CP_STEPS)
+                  // MESH_CP_WORLD,
+                  f"cp rank {o['rank']}: cache block {o['cache_seq']}")
+        check(cp_err <= 1e-4, f"context-parallel decode logits {cp_err}")
+        st = np.asarray(outs[0]["step_ms"])
+        print("[20] " + json.dumps({
+            "card": card, "cp_decode": "make_decode_bundle("
+            "context_parallel=True), (data 1, model 4), fp32",
+            "rows": MESH_CP_ROWS, "prompt": MESH_CP_PROMPT,
+            "steps": MESH_CP_STEPS, "cache_block": outs[0]["cache_seq"],
+            "logits_max_abs_err": cp_err, "atol": 1e-4,
+            "step_ms_p50": float(np.percentile(st, 50)),
+            "collective_bytes_prefill": _per_step(
+                outs[0]["traffic"]["prefill"], 1),
+            "collective_bytes_first_decode_step": _per_step(
+                outs[0]["traffic"]["first_decode"], 1),
+            "collective_bytes_per_later_decode_step": _per_step(
+                outs[0]["traffic"]["later_decode"], MESH_CP_STEPS - 1),
+            "ranks_s": ranks_s,
+            "phase_s": time.perf_counter() - t_phase}))
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    return launches
+
+
 def _kernel_name(mangled: str) -> str:
     """``name<type,ints>`` (or ``name<ints>`` for the bf16-only tensor-core
     kernels) from a mangled kernel name."""
@@ -4299,6 +4694,7 @@ def main() -> int:
               for arch, batch, remat in FAMILY_TRAIN}
     serve_launches = phase_serve_launcher(card)
     tp_launches = phase_tensor_parallel(card)
+    mesh_launches = phase_mesh_launchers(card)
     phase_card_vs_cpu()
     phase_card_vs_cpu("granite-moe-1b-a400m", "granite")
     phase_train_card_vs_cpu()
@@ -4341,6 +4737,9 @@ def main() -> int:
         "ssd": {"mamba2_prefill": ssd_launches,
                 "zamba2_prefill": zamba2_ssd},
         "ssd_bwd": {}}
+    for mesh, counts in mesh_launches.items():
+        for name, n in counts.items():
+            by_path[name][f"train_mesh_{mesh}_rank0"] = n
     for path, counts in (("whisper_prefill", whisper_prefill),
                          ("whisper_train", whisper_train)):
         for name, n in counts.items():

@@ -59,10 +59,12 @@ def init_mlp(generator: torch.Generator, cfg: MLPConfig = MLPConfig(), *,
     return params
 
 
-def mlp_from_reference(layers, *, device="cpu"
+def mlp_from_reference(layers, *, device=None
                        ) -> List[Dict[str, torch.Tensor]]:
     """The reference's ``init_mlp`` layers (a list of ``{"w", "b"}``
-    numpy arrays) as float32 tensors on ``device``."""
+    numpy arrays) as float32 tensors on ``device`` (None: the CUDA card,
+    as ``models.params.from_reference``)."""
+    device = resolve_device(device)
     return [{k: torch.tensor(np.asarray(v, np.float32), device=device)
              for k, v in layer.items()} for layer in layers]
 

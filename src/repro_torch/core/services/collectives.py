@@ -26,6 +26,13 @@ for all-reduce, broadcast, reduce-scatter and all-gather (it stages them
 through the host itself); it has no CUDA send/recv, so there the service
 copies the operand to the host and back explicitly and counts each such
 copy in ``host_copies``.  No collective is retried another way.
+
+``traffic`` counts every collective the service issues by (operation,
+group size): calls and result bytes, which
+``telemetry.roofline.collective_stats`` turns into the roofline's wire
+bytes.  A ``meta`` operand (a dry run, a build on meta tensors) carries no
+data: it is counted and answered with a result of the right shape, and no
+call reaches the process group.
 """
 from __future__ import annotations
 
@@ -68,6 +75,16 @@ class CollectiveService(Service):
         # tensor), and collectives issued
         self.host_copies = 0
         self.calls = 0
+        # (op, group size) -> [calls, result bytes]
+        self.traffic: Dict[Tuple[str, int], List[int]] = {}
+
+    def _count(self, op: str, result: torch.Tensor, group) -> None:
+        import torch.distributed as dist
+        self.calls += 1
+        key = (op, dist.get_world_size(group))
+        rec = self.traffic.setdefault(key, [0, 0])
+        rec[0] += 1
+        rec[1] += result.numel() * result.element_size()
 
     # -- schedule selection ---------------------------------------------------
     def pick_schedule(self, mesh) -> str:
@@ -83,10 +100,12 @@ class CollectiveService(Service):
     # -- the group primitives -------------------------------------------------
     def _reduce(self, x: torch.Tensor, group, op: str) -> torch.Tensor:
         import torch.distributed as dist
-        self.calls += 1
+        self._count("all-reduce", x, group)
         y = x.clone()
-        dist.all_reduce(y, op={"sum": dist.ReduceOp.SUM,
-                               "max": dist.ReduceOp.MAX}[op], group=group)
+        if not y.is_meta:
+            dist.all_reduce(y, op={"sum": dist.ReduceOp.SUM,
+                                   "max": dist.ReduceOp.MAX}[op],
+                            group=group)
         return y
 
     def broadcast(self, x: torch.Tensor, mesh, axis: str,
@@ -96,8 +115,9 @@ class CollectiveService(Service):
         import torch.distributed as dist
         _check_mesh(mesh)
         g = mesh.get_group(axis)
-        self.calls += 1
-        dist.broadcast(x, src=dist.get_global_rank(g, src), group=g)
+        self._count("broadcast", x, g)
+        if not x.is_meta:
+            dist.broadcast(x, src=dist.get_global_rank(g, src), group=g)
         return x
 
     # -- reductions -----------------------------------------------------------
@@ -151,12 +171,14 @@ class CollectiveService(Service):
             flat = torch.cat([flat, flat.new_zeros(pad)])
         flat = flat.contiguous()
         part = flat.new_empty(flat.numel() // n)
-        self.calls += 1
-        dist.reduce_scatter_tensor(part, flat, group=gd)
+        self._count("reduce-scatter", part, gd)
+        if not flat.is_meta:
+            dist.reduce_scatter_tensor(part, flat, group=gd)
         part = self._reduce(part, mesh.get_group(pod_axis), "sum")
         full = part.new_empty(part.numel() * n)
-        self.calls += 1
-        dist.all_gather_into_tensor(full, part, group=gd)
+        self._count("all-gather", full, gd)
+        if not part.is_meta:
+            dist.all_gather_into_tensor(full, part, group=gd)
         return full[:n_elems].reshape(x.shape)
 
     def all_gather(self, x: torch.Tensor, mesh, axis: str,
@@ -169,8 +191,9 @@ class CollectiveService(Service):
         n = dist.get_world_size(g)
         src = x.movedim(dim, 0).contiguous()
         out = src.new_empty((n * src.shape[0],) + tuple(src.shape[1:]))
-        self.calls += 1
-        dist.all_gather_into_tensor(out, src, group=g)
+        self._count("all-gather", out, g)
+        if not src.is_meta:
+            dist.all_gather_into_tensor(out, src, group=g)
         return out.movedim(0, dim)
 
     # -- QP registry (RDMA verbs analogue) --------------------------------------
@@ -209,11 +232,11 @@ class CollectiveService(Service):
                 if staged:
                     buf = buf.cpu()
                     self.host_copies += 1
-                self.calls += 1
+                self._count("collective-permute", buf, g)
                 dist.send(buf, dst=dist.get_global_rank(g, dst), group=g)
             elif me == dst:
                 buf = torch.zeros_like(x, device="cpu") if staged else out
-                self.calls += 1
+                self._count("collective-permute", buf, g)
                 dist.recv(buf, src=dist.get_global_rank(g, src), group=g)
                 if staged:
                     self.host_copies += 1

@@ -10,7 +10,11 @@ service it depends on (paper §4).
 Twin of ``repro.core.vfpga``.  A slot's device is its static layer's
 (``static.device``); an app's "compiled" logic is the function itself
 after :func:`repro_torch.core.static_layer.build_eager` checked it on meta
-tensors of its ``abstract_args``.
+tensors of its ``abstract_args``.  A sharded app (``in_shardings`` set,
+one rank of a mesh: a ``launch.steps.StepBundle``'s function and
+shardings) gets this rank's blocks: its weights, the function's first
+argument, migrate under ``in_shardings[0]``, and the build runs on the
+rank's block shapes (``static_layer.local_specs``).
 """
 from __future__ import annotations
 
@@ -26,7 +30,7 @@ from repro_torch.core.interfaces import (AppInterface, Completion, Oper, SgEntry
 from repro_torch.core.services.base import ServiceRegistry, ServiceRequirement
 from repro_torch.core.static_layer import (IRQ_USER, StaticLayer,
                                            array_leaves, build_eager,
-                                           nbytes_of)
+                                           local_specs, nbytes_of)
 
 
 class SlotState(Enum):
@@ -151,12 +155,14 @@ class VFpga:
         self.check_link(artifact, services)
         self.unload()
         t_mig = 0.0
+        sharded = artifact.in_shardings is not None
         if artifact.weights is not None:
             m0 = time.perf_counter()
-            self.device_weights, _ = self.static.engine.migrate_tree(
-                artifact.weights)
+            self.device_weights, moved = self.static.engine.migrate_tree(
+                artifact.weights,
+                artifact.in_shardings[0] if sharded else None)
             t_mig = time.perf_counter() - m0
-            self.hbm_used = artifact.weight_bytes()
+            self.hbm_used = moved.nbytes
         t_comp = 0.0
         hit = True
         if artifact.abstract_args is not None:
@@ -164,14 +170,11 @@ class VFpga:
                 artifact.name, artifact.config_repr, mesh,
                 artifact.abstract_args)
 
-            if (artifact.in_shardings is not None
-                    or artifact.out_shardings is not None):
-                raise NotImplementedError(
-                    "sharded app logic (in_shardings/out_shardings) belongs "
-                    "to the mesh-bound launchers, ROADMAP queue 1 item 21")
-
             def build():
-                return build_eager(artifact.fn, artifact.abstract_args)
+                specs = artifact.abstract_args
+                if sharded:
+                    specs = local_specs(specs, artifact.in_shardings)
+                return build_eager(artifact.fn, specs)
 
             c0 = time.perf_counter()
             entry, hit = self.static.compile_cache.get_or_build(key, build)

@@ -6,8 +6,9 @@ the chunked jnp scan by a flag.  Here ``ssd`` is one
 hand-written kernels: the forward scan (``ssd.ssd_scan``) and, for the
 gradient, the backward kernel (``ssd.ssd_scan_bwd``); each launches or
 raises.  A CPU tensor goes to the plain versions: ``ref.ssd_chunked`` and
-``ref.ssd_chunked_bwd``.  Any other device raises.  There is no flag to
-pick the plain version on the card.
+``ref.ssd_chunked_bwd``, and so does a ``meta`` tensor (a dry run or a
+build on meta tensors: nothing is computed, only shapes).  Any other
+device raises.  There is no flag to pick the plain version on the card.
 
 The reference has no backward kernel: it trains mamba models by
 differentiating its jnp scan, and the gradient here is held to
@@ -22,7 +23,7 @@ from repro_torch.kernels.ssd.ssd import ssd_scan, ssd_scan_bwd
 
 
 def _device(x):
-    if x.device.type not in ("cuda", "cpu"):
+    if x.device.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"ssd: no kernel for device {x.device}")
     return x.device.type
 

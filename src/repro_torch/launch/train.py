@@ -7,9 +7,10 @@
 Twin of ``repro.launch.train`` with the same flags; it trains on the CUDA
 card unless ``--device`` names another.  ``--compress`` turns on the
 GradCompression service (int8, error feedback); ``--remat`` picks the
-per-layer recomputation policy.  ``--microbatches`` above 1 raises until
-the mesh-bound launchers, ROADMAP item 21 (the reference reads it only
-under a mesh).
+per-layer recomputation policy.  ``--microbatches`` is accepted and, as
+in the reference, changes nothing: the launcher builds a Trainer without
+a mesh, which ignores it (``Trainer(mesh=...)`` is the one that
+accumulates).
 """
 from __future__ import annotations
 

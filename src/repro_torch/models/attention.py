@@ -26,7 +26,7 @@ the cache tensors are returned, the port's form of a donated buffer.  The
 paged serving path attends through ``repro_torch.serve.paged_model`` and
 the paged-attention kernel.  ``attend_decode_cp`` is the context-parallel
 decode over a KV cache sequence-sharded on a mesh dim: every rank runs it
-on its own block and the softmax statistics meet in three all-reduces.
+on its own block and the softmax statistics meet in two all-reduces.
 """
 from __future__ import annotations
 
@@ -34,8 +34,29 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import ops
+from repro_torch.models.sharding import MeshRules, P
 
 NEG_INF = -1e30
+
+
+def attn_specs(cfg: ModelConfig, rules: MeshRules) -> dict:
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    h, k = cfg.n_heads, cfg.n_kv_heads
+    # Shard the flattened head dim on `model` only when whole heads divide,
+    # so per-head softmax stays device-local.
+    q_tp = rules.tp_axis if (rules.tp_size and h % rules.tp_size == 0) else None
+    kv_tp = rules.tp_axis if (rules.tp_size and k % rules.tp_size == 0) else None
+    s = {
+        "wq": P(rules.fsdp(d), q_tp),
+        "wk": P(rules.fsdp(d), kv_tp),
+        "wv": P(rules.fsdp(d), kv_tp),
+        "wo": P(q_tp, rules.fsdp(d)),
+    }
+    if cfg.qkv_bias:
+        s["bq"] = P(q_tp)
+        s["bk"] = P(kv_tp)
+        s["bv"] = P(kv_tp)
+    return s
 
 
 def qkv_proj(params, cfg: ModelConfig, x):
@@ -144,7 +165,7 @@ def attend_decode_cp(q, k_cache, v_cache, cache_len, mesh, *,
     batch split over another dim (``data``) needs nothing here: the caller
     passes its own rows, and rows never meet, so no reduction runs over
     that dim.  Scores and the ``p . V`` partial accumulate in float32; the
-    max and the two sums go through ``collectives`` (a
+    max, then the two sums in one operand, go through ``collectives`` (a
     :class:`~repro_torch.core.services.collectives.CollectiveService`, a
     fresh one when ``None``)."""
     from repro_torch.core.services.collectives import CollectiveService
@@ -164,9 +185,12 @@ def attend_decode_cp(q, k_cache, v_cache, cache_len, mesh, *,
     m = svc.all_reduce(scores.amax(dim=-1, keepdim=True), mesh, axes,
                        op="max")
     p = torch.exp(scores - m)
-    l = svc.all_reduce(p.sum(dim=-1, keepdim=True), mesh, axes)
+    l = p.sum(dim=-1, keepdim=True)                       # (B,K,G,1,1)
     part = torch.einsum("bkgqs,bskh->bqkgh", p, v_cache.float())
-    out = svc.all_reduce(part, mesh, axes)
+    both = svc.all_reduce(torch.cat([part.reshape(b, -1), l.reshape(b, -1)],
+                                    dim=1), mesh, axes)
+    out = both[:, :part[0].numel()].reshape(part.shape)
+    l = both[:, part[0].numel():].reshape(l.shape)
     out = out / l.permute(0, 3, 1, 2, 4).clamp_min(1e-30)
     return out.reshape(b, 1, h, hd).to(q.dtype)
 

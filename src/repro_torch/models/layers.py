@@ -2,11 +2,14 @@
 
 Twin of ``repro.models.layers``.  Norms upcast to float32 and cast back;
 RoPE uses the split-half convention (first half / second half of the head
-dimension rotate together), not the interleaved one.
+dimension rotate together), not the interleaved one.  ``norm_specs`` and
+``embed_specs`` give the matching partition specs.
 """
 from __future__ import annotations
 
 import torch
+
+from repro_torch.models.sharding import MeshRules, P
 
 
 def rmsnorm(params, x, eps: float = 1e-5):
@@ -30,6 +33,10 @@ def norm_apply(params, x, eps: float = 1e-5):
     if "bias" in params:
         return layernorm(params, x, eps)
     return rmsnorm(params, x, eps)
+
+
+def norm_specs(params_like: dict) -> dict:
+    return {k: P(None) for k in params_like}
 
 
 def rope_freqs(head_dim: int, theta: float, device=None):
@@ -67,3 +74,8 @@ def sinusoidal_positions(n_pos: int, dim: int, device=None):
 
 def embed_lookup(params, ids):
     return params["table"][ids]
+
+
+def embed_specs(rules: MeshRules, vocab: int, d_model: int) -> dict:
+    # vocab rows FSDP-sharded + D on model when divisible
+    return {"table": P(rules.fsdp(vocab), rules.tp(d_model))}

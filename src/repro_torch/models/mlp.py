@@ -1,13 +1,32 @@
 """Dense FFN: SwiGLU (llama family) or GELU MLP (whisper).
 
-Twin of ``repro.models.mlp.mlp_apply``.  ``jax.nn.gelu`` defaults to the
-tanh approximation, so the GELU branch uses ``approximate="tanh"``.
+Twin of ``repro.models.mlp``'s ``mlp_apply`` and ``mlp_specs``.
+``jax.nn.gelu`` defaults to the tanh approximation, so the GELU branch
+uses ``approximate="tanh"``.
 """
 from __future__ import annotations
 
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.sharding import MeshRules, P
+
+
+def mlp_specs(cfg: ModelConfig, rules: MeshRules, *, d_ff: int = 0) -> dict:
+    d = cfg.d_model
+    f = d_ff or cfg.d_ff
+    if cfg.act == "silu":
+        return {
+            "w_gate": P(rules.fsdp(d), rules.tp(f)),
+            "w_up": P(rules.fsdp(d), rules.tp(f)),
+            "w_down": P(rules.tp(f), rules.fsdp(d)),
+        }
+    return {
+        "w_up": P(rules.fsdp(d), rules.tp(f)),
+        "b_up": P(rules.tp(f)),
+        "w_down": P(rules.tp(f), rules.fsdp(d)),
+        "b_down": P(None),
+    }
 
 
 def mlp_apply(params, cfg: ModelConfig, x):

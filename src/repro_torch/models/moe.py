@@ -23,8 +23,10 @@ capacity ``max(round_up(ceil(Tg*k*factor/E), 8), 8)``.  Which pairs drop
 therefore depends on every token of the group, padding included, exactly
 as in the reference.  The scatter is ``index_add_`` into zeros: every
 destination but the dump row is unique, so it is a copy, and the dump
-row is discarded.  The sharding hints of the reference (``rules``,
-``moe_specs``) belong to the mesh-bound launchers (ROADMAP item 21).
+row is discarded.  ``moe_specs`` is the reference's expert-parallel
+sharding; ``frac_mean`` lets a rank that holds a block of the batch take
+the load-balancing loss's routed fractions over the whole batch, as the
+reference's one program does.
 """
 from __future__ import annotations
 
@@ -36,6 +38,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import mlp
+from repro_torch.models.sharding import MeshRules, P
 
 
 def _round_up(x: int, m: int) -> int:
@@ -72,6 +75,28 @@ def moe_init(gen: torch.Generator, cfg: ModelConfig, *,
     return p
 
 
+def moe_specs(cfg: ModelConfig, rules: MeshRules) -> dict:
+    e = cfg.moe
+    d, f = cfg.d_model, e.d_ff_expert
+    ep = rules.tp(e.n_experts)   # expert-parallel on the model dim
+    # d/f inner dims are NOT row-sharded: per-expert weights are small,
+    # EP is the sharding
+    s = {
+        "router": P(None, None),
+        "w_gate": P(ep, None, None),
+        "w_up": P(ep, None, None),
+        "w_down": P(ep, None, None),
+    }
+    if e.n_shared_experts:
+        fs = e.n_shared_experts * f
+        s["shared"] = {
+            "w_gate": P(rules.fsdp(d), rules.tp(fs)),
+            "w_up": P(rules.fsdp(d), rules.tp(fs)),
+            "w_down": P(rules.tp(fs), rules.fsdp(d)),
+        }
+    return s
+
+
 def _capacity(tg: int, top_k: int, n_experts: int, factor: float) -> int:
     c = int(math.ceil(tg * top_k * factor / n_experts))
     return max(_round_up(c, 8), 8)
@@ -86,9 +111,11 @@ def group_size_for(t: int, group_size: int = 4096) -> int:
     return gsz
 
 
-def route(params, cfg: ModelConfig, xf):
+def route(params, cfg: ModelConfig, xf, frac_mean=None):
     """xf (T, D) -> gates (T, k) float32 normalised before any drop,
-    expert ids (T, k) int64, aux loss (float32 scalar)."""
+    expert ids (T, k) int64, aux loss (float32 scalar).  ``frac_mean``
+    maps this block's routed fractions (E,) to the whole batch's (the
+    mean over the ranks that split the batch); they carry no gradient."""
     e = cfg.moe
     logits = xf.float() @ params["router"].float()             # (T, E)
     probs = torch.softmax(logits, dim=-1)
@@ -96,6 +123,8 @@ def route(params, cfg: ModelConfig, xf):
     gates = gates / gates.sum(dim=-1, keepdim=True).clamp_min(1e-9)
     me = probs.mean(dim=0)                                     # (E,)
     frac = F.one_hot(eidx, e.n_experts).float().mean(dim=(0, 1))
+    if frac_mean is not None:
+        frac = frac_mean(frac)
     aux = e.n_experts * (frac * me).sum()
     return gates, eidx, aux
 
@@ -143,14 +172,16 @@ def combine(eout, dest, gates):
 
 
 def moe_apply(params, cfg: ModelConfig, x, *, capacity_factor: float = 0.0,
-              group_size: int = 4096) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x (B, S, D) -> (out (B, S, D), aux_loss float32 scalar)."""
+              group_size: int = 4096, frac_mean=None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B, S, D) -> (out (B, S, D), aux_loss float32 scalar).
+    ``frac_mean``: see :func:`route`."""
     e = cfg.moe
     capacity_factor = capacity_factor or e.capacity_factor
     b, s, d = x.shape
     t = b * s
     xf = x.reshape(t, d)
-    gates, eidx, aux = route(params, cfg, xf)
+    gates, eidx, aux = route(params, cfg, xf, frac_mean)
     gsz = group_size_for(t, group_size)
     ng = t // gsz
     cap = _capacity(gsz, e.top_k, e.n_experts, capacity_factor)

@@ -9,14 +9,24 @@ replication when a dim is not divisible by the dim's size.
 A mesh is a ``torch.distributed.device_mesh.DeviceMesh``; a spec is the
 port's :class:`P`, a tuple of dim names (or ``None``) per tensor axis, as
 JAX's ``PartitionSpec``.  Eager PyTorch has no sharding propagation:
-:func:`local_shard` cuts a rank's block out of a full tensor, and
-:func:`constrain` is the identity.
+:func:`local_shard` cuts a rank's block out of a full tensor,
+:func:`reshard` turns a rank's block under one spec into its block under
+another (gathering through a collective service where the specs differ),
+:func:`shard_shape` is a block's shape, and :func:`constrain` is the
+identity.
+
+:class:`ShardedCompute` is how one rank of a mesh computes its part of a
+model with Megatron's tensor parallelism on ``model``: the two
+``torch.autograd.Function`` s ``_EnterTP`` (identity forward, all-reduce
+backward; at a block's entry, after its norm) and ``_ExitTP``
+(all-reduce forward, identity backward; after the attention's
+out-projection and the FFN's ``w_down``).
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional, Tuple, Union
+from typing import Callable, Optional, Tuple, Union
 
 import torch
 
@@ -118,24 +128,136 @@ def constrain(x, spec: P):
     return x
 
 
+def _dims(entry: Axis) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def _axes(spec: Optional[P], ndim: int) -> Tuple[Tuple[str, ...], ...]:
+    """A spec's dims per tensor axis, padded with () to ``ndim``."""
+    entries = tuple(_dims(e) for e in (spec or ()))
+    return entries + ((),) * (ndim - len(entries))
+
+
+def _size(mesh, dim: str) -> int:
+    return int(mesh.size(mesh.mesh_dim_names.index(dim)))
+
+
+def _cut(x: torch.Tensor, mesh, axis: int, dims: Tuple[str, ...],
+         spec=None) -> torch.Tensor:
+    """This rank's block of ``x`` along ``axis`` split over ``dims``
+    (several: the first is the outer)."""
+    n, idx = 1, 0
+    for d in dims:
+        size = _size(mesh, d)
+        idx = idx * size + mesh.get_local_rank(d)
+        n *= size
+    if n == 1:
+        return x
+    if x.shape[axis] % n:
+        raise ValueError(f"axis {axis} of size {x.shape[axis]} does not "
+                         f"split into {n} blocks for spec {spec}")
+    return x.chunk(n, dim=axis)[idx]
+
+
 def local_shard(x: torch.Tensor, mesh, spec: Optional[P]) -> torch.Tensor:
     """This rank's block of the full tensor ``x`` under ``spec``: each axis
     named by the spec is cut into equal contiguous blocks, one per
     coordinate of its mesh dims (several dims: the first is the outer).
     Returns a contiguous copy."""
-    if spec is None:
-        return x.contiguous()
-    for axis, dims in enumerate(spec):
-        if dims is None:
-            continue
-        dims = (dims,) if isinstance(dims, str) else tuple(dims)
-        n, idx = 1, 0
-        for d in dims:
-            size = mesh.size(mesh.mesh_dim_names.index(d))
-            idx = idx * size + mesh.get_local_rank(d)
-            n *= size
-        if x.shape[axis] % n:
-            raise ValueError(f"axis {axis} of size {x.shape[axis]} does not "
-                             f"split into {n} blocks for spec {spec}")
-        x = x.chunk(n, dim=axis)[idx]
+    for axis, dims in enumerate(_axes(spec, x.dim())):
+        x = _cut(x, mesh, axis, dims, spec)
     return x.contiguous()
+
+
+def flatten_specs(tree, prefix: str = "") -> dict:
+    """A spec tree of dicts and tuples -> {"a/b/0/c": P}, the keys
+    ``optim.adamw.flatten`` gives the congruent tensor tree (a ``P`` is a
+    tuple, and a leaf here)."""
+    if isinstance(tree, (dict, tuple)) and not isinstance(tree, P):
+        items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+        out = {}
+        for k, v in items:
+            out.update(flatten_specs(v, f"{prefix}{k}/"))
+        return out
+    return {prefix[:-1]: tree}
+
+
+def shard_shape(shape, mesh, spec: Optional[P]) -> Tuple[int, ...]:
+    """The shape of one rank's block of a tensor of ``shape`` under
+    ``spec``."""
+    out = list(shape)
+    for axis, dims in enumerate(_axes(spec, len(out))):
+        for d in dims:
+            out[axis] //= _size(mesh, d)
+    return tuple(out)
+
+
+def reshard(x: torch.Tensor, mesh, src: Optional[P], dst: Optional[P],
+            collectives) -> torch.Tensor:
+    """This rank's block ``x`` under ``src`` -> its block under ``dst``.
+    Each axis whose dims differ is gathered over ``src``'s dims (through
+    ``collectives.all_gather``, the inner dim first; dims of size 1 move
+    nothing) and cut by ``dst``'s; an axis whose dims agree is left as it
+    is.  Every rank of the touched dims must call it, in the same
+    order."""
+    for axis, (s, d) in enumerate(zip(_axes(src, x.dim()),
+                                      _axes(dst, x.dim()))):
+        if s == d:
+            continue
+        for name in reversed(s):
+            if _size(mesh, name) > 1:
+                x = collectives.all_gather(x, mesh, name, dim=axis)
+        x = _cut(x, mesh, axis, d, dst)
+    return x
+
+
+class _EnterTP(torch.autograd.Function):
+    """Megatron's ``f``: identity forward, all-reduce of the gradient over
+    the model group backward (the split projections' input gradients are
+    partial sums)."""
+
+    @staticmethod
+    def forward(ctx, x, reduce):
+        ctx.reduce = reduce
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.reduce(grad), None
+
+
+class _ExitTP(torch.autograd.Function):
+    """Megatron's ``g``: all-reduce of the partial outputs over the model
+    group forward, identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, reduce):
+        return reduce(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+@dataclass
+class ShardedCompute:
+    """One rank's share of a model's compute on a mesh.
+
+    ``attn``/``mlp``: the attention heads / the SwiGLU columns are split on
+    ``model`` (``serve.tp.tp_plan``); the model then runs on the rank's
+    heads (a local config) and wraps each split part in ``enter`` and
+    ``exit``.  ``reduce`` sums a tensor over the model group.
+    ``frac_mean``: the MoE load-balancing loss's routed fractions averaged
+    over the ranks that split the batch (training only)."""
+    attn: bool = False
+    mlp: bool = False
+    reduce: Optional[Callable] = None
+    frac_mean: Optional[Callable] = None
+
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        return _EnterTP.apply(x, self.reduce)
+
+    def exit(self, x: torch.Tensor) -> torch.Tensor:
+        return _ExitTP.apply(x, self.reduce)

@@ -11,8 +11,8 @@ is.  ``ssd_chunked`` is re-exported from ``kernels/ssd/ref.py`` (the
 reverse of the reference's layout, which would be an import cycle here).
 ``mamba_apply``'s scan goes through ``kernels/ssd/ops.ssd``: the
 hand-written CUDA kernel for a CUDA tensor, the plain chunked scan for a
-CPU tensor.  The sharding specs belong to the mesh-bound launchers
-(ROADMAP item 21).
+CPU tensor.  ``mamba_specs`` and ``mamba_cache_specs`` are the
+reference's partition specs.
 """
 from __future__ import annotations
 
@@ -25,6 +25,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ssd import ops
 from repro_torch.kernels.ssd.ref import ssd_chunked  # noqa: F401 (re-export)
 from repro_torch.models import layers
+from repro_torch.models.sharding import MeshRules, P
 
 # leaves that stay float32 whatever the weights' dtype: the SSM's decay
 # and skip parameters (reference ``mamba_init``) and the MoE router
@@ -45,6 +46,36 @@ def cast(tree, device, dtype):
 
 
 # ------------------------------------------------------------- weights ----
+def mamba_specs(cfg: ModelConfig, rules: MeshRules) -> dict:
+    s = cfg.ssm
+    d = cfg.d_model
+    tp_i = rules.tp(s.d_inner(d))
+    tp_h = rules.tp(s.n_heads(d))
+    return {
+        "wz": P(rules.fsdp(d), tp_i),
+        "wx": P(rules.fsdp(d), tp_i),
+        "wB": P(rules.fsdp(d), None),
+        "wC": P(rules.fsdp(d), None),
+        "wdt": P(rules.fsdp(d), tp_h),
+        # conv channels stay replicated (small)
+        "conv_w": P(None, None),
+        "conv_b": P(None),
+        "dt_bias": P(tp_h),
+        "A_log": P(tp_h),
+        "D": P(tp_h),
+        "norm": {"scale": P(tp_i)},
+        "wo": P(tp_i, rules.fsdp(d)),
+    }
+
+
+def mamba_cache_specs(cfg: ModelConfig, rules: MeshRules, batch: int) -> dict:
+    nh = cfg.ssm.n_heads(cfg.d_model)
+    return {
+        "conv": P(rules.batch(batch), None, None),
+        "ssm": P(rules.batch(batch), rules.tp(nh), None, None),
+    }
+
+
 def mamba_init(gen: torch.Generator, cfg: ModelConfig, *,
                dtype=torch.float32):
     """The reference's key tree, shapes and init scales; random numbers

@@ -28,6 +28,16 @@ an encoder-decoder's cross KV (``xk``/``xv``, one entry per frame) beside
 its self-attention KV.  ``remat`` wraps each decoder, mamba or hybrid-cycle
 body in ``torch.utils.checkpoint`` (``_remat``); the encoder runs without,
 as the reference's encoder scan does.
+
+``param_specs`` and ``cache_specs`` are the reference's partition-spec
+trees, congruent with ``init_params`` and ``init_cache``.  On a mesh
+(``launch/steps.py``) each rank runs these functions on its own block:
+``sharded`` (a :class:`~repro_torch.models.sharding.ShardedCompute`)
+splits the attention heads and the SwiGLU columns on ``model``, with
+Megatron's pair around each split part, and ``decode_step(cp_mesh=...)``
+attends over a sequence-sharded KV cache with
+``attention.attend_decode_cp``.  ``rules`` is taken where the reference
+takes it; its ``constrain`` hints are the identity here.
 """
 from __future__ import annotations
 
@@ -42,6 +52,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention, layers, mlp, moe, ssm
+from repro_torch.models.sharding import MeshRules, P, constrain
 
 
 def _uniform(cfg: ModelConfig) -> bool:
@@ -171,6 +182,73 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator,
     return p
 
 
+def _norm_specs(cfg: ModelConfig, *, layernorm: bool = False):
+    keys = ("scale", "bias") if layernorm or cfg.act == "gelu" else ("scale",)
+    return layers.norm_specs(dict.fromkeys(keys))
+
+
+def _attn_layer_specs(cfg: ModelConfig, rules: MeshRules,
+                      *, cross: bool = False):
+    s = {
+        "norm1": _norm_specs(cfg),
+        "attn": attention.attn_specs(cfg, rules),
+        "norm2": _norm_specs(cfg),
+    }
+    if _is_moe_layer(cfg):
+        s["ffn"] = moe.moe_specs(cfg, rules)
+    else:
+        s["ffn"] = mlp.mlp_specs(cfg, rules)
+    if cross:
+        s["norm_x"] = s["norm1"]
+        s["xattn"] = attention.attn_specs(cfg, rules)
+    return s
+
+
+def _mamba_layer_specs(cfg: ModelConfig, rules: MeshRules):
+    return {
+        "norm": _norm_specs(cfg),
+        "mamba": ssm.mamba_specs(cfg, rules),
+    }
+
+
+def _lift(tree, n: int = 1):
+    """Prepend ``n`` unsharded axes (the stacked layer / cycle axes)."""
+    if isinstance(tree, dict):
+        return {k: _lift(v, n) for k, v in tree.items()}
+    return P(*((None,) * n + tuple(tree)))
+
+
+def param_specs(cfg: ModelConfig, rules: MeshRules) -> Dict:
+    """Partition-spec tree congruent with ``init_params``' output.  The
+    stacked layer axis is never sharded."""
+    s: Dict[str, Any] = {
+        "embed": layers.embed_specs(rules, cfg.padded_vocab, cfg.d_model),
+        "final_norm": _norm_specs(cfg),
+    }
+    if not cfg.tie_embeddings:
+        s["lm_head"] = P(rules.fsdp(cfg.d_model), rules.tp(cfg.padded_vocab))
+    cross = cfg.n_encoder_layers > 0
+    if _uniform(cfg):
+        per = (_mamba_layer_specs(cfg, rules)
+               if cfg.block_pattern[0] == "mamba"
+               else _attn_layer_specs(cfg, rules, cross=cross))
+        s["layers"] = _lift(per)
+    else:
+        slots = []
+        for kind in cfg.block_pattern:
+            if kind == "shared_attn":
+                s["shared_attn"] = _attn_layer_specs(cfg, rules)
+            else:
+                slots.append(_lift(_mamba_layer_specs(cfg, rules)))
+        s["slots"] = tuple(slots)
+    if cross:
+        s["encoder"] = {
+            "layers": _lift(_attn_layer_specs(cfg, rules)),
+            "final_norm": _norm_specs(cfg, layernorm=True),
+        }
+    return s
+
+
 def lm_logits(params, cfg: ModelConfig, hidden):
     """hidden (..., D) -> logits (..., V) float32."""
     if cfg.tie_embeddings:
@@ -187,20 +265,36 @@ def _unstack(tree, n: int):
     return torch.unbind(tree, 0)
 
 
-def _ffn(p, cfg: ModelConfig, h):
-    """The layer's FFN: (out, aux loss or None)."""
+def _ffn(p, cfg: ModelConfig, h, sharded=None):
+    """The layer's FFN: (out, aux loss or None), the SwiGLU columns split
+    on ``model`` when ``sharded.mlp``."""
+    tp = sharded is not None and sharded.mlp
+    if tp:
+        h = sharded.enter(h)
     if _is_moe_layer(cfg):
-        return moe.moe_apply(p, cfg, h)
-    return mlp.mlp_apply(p, cfg, h), None
+        frac_mean = sharded.frac_mean if sharded is not None else None
+        out, aux = moe.moe_apply(p, cfg, h, frac_mean=frac_mean)
+    else:
+        out, aux = mlp.mlp_apply(p, cfg, h), None
+    return (sharded.exit(out) if tp else out), aux
+
+
+def _attn_in(sharded, h):
+    return sharded.enter(h) if sharded is not None and sharded.attn else h
+
+
+def _attn_out(sharded, o):
+    return sharded.exit(o) if sharded is not None and sharded.attn else o
 
 
 def _attn_block_fwd(p, cfg: ModelConfig, x, *, causal: bool, q_offset: int,
-                    enc_out=None, fused: bool = False):
+                    enc_out=None, fused: bool = False, sharded=None):
     """Self-attention (+ cross-attention over ``enc_out`` when given) +
     FFN with residuals.  Returns (x, aux or None, (k, v), xkv): k after
     RoPE, for prefill cache capture; xkv the cross-attention's (k, v) from
-    ``enc_out`` (no RoPE), or None."""
-    h = layers.norm_apply(p["norm1"], x, cfg.norm_eps)
+    ``enc_out`` (no RoPE), or None.  With ``sharded``, ``cfg`` is the
+    rank's local config and the weights its split columns."""
+    h = _attn_in(sharded, layers.norm_apply(p["norm1"], x, cfg.norm_eps))
     q, k, v = attention.qkv_proj(p["attn"], cfg, h)
     if cfg.pos_embed == "rope":
         pos = q_offset + torch.arange(x.shape[1], device=x.device)
@@ -209,10 +303,12 @@ def _attn_block_fwd(p, cfg: ModelConfig, x, *, causal: bool, q_offset: int,
     att = attention.attend_chunked(q, k, v, causal=causal,
                                    window=cfg.swa_window, q_offset=0,
                                    fused=fused)
-    x = x + attention.out_proj(p["attn"], cfg, att)
+    x = x + _attn_out(sharded, attention.out_proj(p["attn"], cfg, att))
     xkv = None
     if enc_out is not None:
-        hx = layers.norm_apply(p["norm_x"], x, cfg.norm_eps)
+        hx = _attn_in(sharded, layers.norm_apply(p["norm_x"], x,
+                                                 cfg.norm_eps))
+        enc_out = _attn_in(sharded, enc_out)
         hd, kh = cfg.resolved_head_dim, cfg.n_kv_heads
         qx = (hx @ p["xattn"]["wq"].to(hx.dtype)).reshape(
             hx.shape[0], hx.shape[1], cfg.n_heads, hd)
@@ -221,10 +317,10 @@ def _attn_block_fwd(p, cfg: ModelConfig, x, *, causal: bool, q_offset: int,
         ev = (enc_out @ p["xattn"]["wv"].to(enc_out.dtype)).reshape(
             enc_out.shape[0], enc_out.shape[1], kh, hd)
         ax = attention.attend_chunked(qx, ek, ev, causal=False, fused=fused)
-        x = x + attention.out_proj(p["xattn"], cfg, ax)
+        x = x + _attn_out(sharded, attention.out_proj(p["xattn"], cfg, ax))
         xkv = (ek, ev)
     h = layers.norm_apply(p["norm2"], x, cfg.norm_eps)
-    out, aux = _ffn(p["ffn"], cfg, h)
+    out, aux = _ffn(p["ffn"], cfg, h, sharded)
     return x + out, aux, (k, v), xkv
 
 
@@ -260,7 +356,7 @@ def _remat(fn, policy: str):
     return lambda *args: checkpoint(fn, *args, **kw)
 
 
-def encode(params, cfg: ModelConfig, frames):
+def encode(params, cfg: ModelConfig, frames, sharded=None):
     """Whisper encoder: frames (B, enc_seq, D) -> enc_out (B, enc_seq, D).
     Sinusoidal positions, every layer non-causal, then the encoder's
     final LayerNorm.  No remat, as in the reference."""
@@ -269,7 +365,8 @@ def encode(params, cfg: ModelConfig, frames):
     x = frames + pe[None].to(frames.dtype)
     enc = params["encoder"]
     for lp in _unstack(enc["layers"], cfg.n_encoder_layers):
-        x, _, _, _ = _attn_block_fwd(lp, cfg, x, causal=False, q_offset=0)
+        x, _, _, _ = _attn_block_fwd(lp, cfg, x, causal=False, q_offset=0,
+                                     sharded=sharded)
     return layers.norm_apply(enc["final_norm"], x, cfg.norm_eps)
 
 
@@ -284,8 +381,9 @@ def _embed_tokens(params, cfg: ModelConfig, tokens, *, offset: int = 0):
 
 
 def forward(params, cfg: ModelConfig, tokens, *, encoder_frames=None,
-            remat: str = "none", collect_kv: bool = False,
-            compute_dtype=None, fused_attention: bool = False):
+            remat: str = "none", rules: Optional[MeshRules] = None,
+            collect_kv: bool = False, compute_dtype=None,
+            fused_attention: bool = False, sharded=None):
     """Full-sequence forward.  tokens (B, S) integer; ``encoder_frames``
     (B, enc_seq, D), which an encoder-decoder model needs.
 
@@ -302,22 +400,26 @@ def forward(params, cfg: ModelConfig, tokens, *, encoder_frames=None,
     decoder, mamba or hybrid-cycle body checkpointed by ``_remat``.
     ``compute_dtype``: activation dtype, frames included (params stay
     float32 masters, weights cast at use sites); None keeps the param
-    dtype.
+    dtype.  ``sharded``: this rank's share of a mesh's compute (see the
+    module's docstring); None runs the whole model.
     """
     x = _embed_tokens(params, cfg, tokens)
     if compute_dtype is not None:
         x = x.to(compute_dtype)
         if encoder_frames is not None:
             encoder_frames = encoder_frames.to(compute_dtype)
+    if rules is not None:
+        x = constrain(x, P(rules.batch(tokens.shape[0]), None, None))
     enc_out = None
     if cfg.n_encoder_layers:
         if encoder_frames is None:
             raise ValueError(f"{cfg.arch_id} needs encoder frames")
-        enc_out = encode(params, cfg, encoder_frames)
+        enc_out = encode(params, cfg, encoder_frames, sharded)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if not _uniform(cfg):
         x, kv, ms = _hybrid_fwd(params, cfg, x, collect_kv=collect_kv,
-                                fused=fused_attention, remat=remat)
+                                fused=fused_attention, remat=remat,
+                                sharded=sharded)
         return x, aux, kv, (None, None, ms)
     if cfg.block_pattern[0] == "mamba":
         body = _remat(lambda lp, x: _mamba_block_fwd(lp, cfg, x), remat)
@@ -332,7 +434,8 @@ def forward(params, cfg: ModelConfig, tokens, *, encoder_frames=None,
 
     def layer(lp, x, enc_out):
         return _attn_block_fwd(lp, cfg, x, causal=True, q_offset=0,
-                               enc_out=enc_out, fused=fused_attention)
+                               enc_out=enc_out, fused=fused_attention,
+                               sharded=sharded)
 
     body = _remat(layer, remat)
     ks, vs, xks, xvs = [], [], [], []
@@ -357,7 +460,7 @@ def _stack_states(states):
 
 
 def _hybrid_fwd(params, cfg: ModelConfig, x, *, collect_kv: bool,
-                fused: bool, remat: str = "none"):
+                fused: bool, remat: str = "none", sharded=None):
     """The pattern run once per cycle (one ``_remat`` body): each mamba
     slot with its cycle's weights, the shared block with the one shared
     tree (no window: the reference's forward attends to the whole
@@ -372,7 +475,7 @@ def _hybrid_fwd(params, cfg: ModelConfig, x, *, collect_kv: bool,
             if kind == "shared_attn":
                 x, _, kv, _ = _attn_block_fwd(params["shared_attn"], cfg, x,
                                               causal=True, q_offset=0,
-                                              fused=fused)
+                                              fused=fused, sharded=sharded)
             else:
                 x, fc = _mamba_block_fwd(slot_params[si], cfg, x)
                 states.append(fc)
@@ -423,15 +526,18 @@ def xent_loss(params, cfg: ModelConfig, hidden, labels, mask, *,
 
 
 def loss_fn(params, cfg: ModelConfig, batch, *, remat: str = "none",
-            aux_weight: float = 0.01, compute_dtype=None,
-            fused_attention: bool = False):
+            rules: Optional[MeshRules] = None, aux_weight: float = 0.01,
+            compute_dtype=None, fused_attention: bool = False,
+            sharded=None):
     """batch: {"tokens" (B,S), optional "frames" (B,enc_seq,D)}.
     Next-token LM loss.  Returns (total, {"loss", "aux_loss", "tokens"})."""
     tokens = batch["tokens"].long()
     hidden, aux, _, _ = forward(params, cfg, tokens,
                                 encoder_frames=batch.get("frames"),
-                                remat=remat, compute_dtype=compute_dtype,
-                                fused_attention=fused_attention)
+                                remat=remat, rules=rules,
+                                compute_dtype=compute_dtype,
+                                fused_attention=fused_attention,
+                                sharded=sharded)
     labels = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])],
                        dim=1)
     mask = torch.cat([torch.ones_like(tokens[:, 1:], dtype=torch.float32),
@@ -484,6 +590,33 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     return c
 
 
+def cache_specs(cfg: ModelConfig, rules: MeshRules, batch: int,
+                max_len: int) -> Dict:
+    """Sharding of the decode cache.  KV heads shard on ``model`` when
+    divisible; otherwise the *sequence* dim shards on ``model`` (the
+    context-parallel decode of ``decode_step(cp_mesh=...)``)."""
+    kl = decode_cache_len(cfg, max_len)
+    bax = rules.batch(batch)
+    kv_tp = rules.tp(cfg.n_kv_heads)
+    seq_tp = None if kv_tp is not None else rules.tp(kl)
+    kv_spec = P(None, bax, seq_tp, kv_tp, None)
+    s: Dict[str, Any] = {}
+    if _uniform(cfg):
+        if cfg.block_pattern[0] == "mamba":
+            s["mamba"] = _lift(ssm.mamba_cache_specs(cfg, rules, batch))
+        else:
+            s["k"] = kv_spec
+            s["v"] = kv_spec
+            if cfg.n_encoder_layers:
+                s["xk"] = P(None, bax, None, kv_tp, None)
+                s["xv"] = P(None, bax, None, kv_tp, None)
+    else:
+        s["mamba"] = _lift(ssm.mamba_cache_specs(cfg, rules, batch), 2)
+        s["k"] = kv_spec
+        s["v"] = kv_spec
+    return s
+
+
 def _kv_cache(cfg: ModelConfig, n: int, batch: int, max_len: int, dtype,
               device) -> Dict:
     """Zeroed {"k", "v"}, each (n, B, decode_cache_len, K, hd)."""
@@ -493,14 +626,34 @@ def _kv_cache(cfg: ModelConfig, n: int, batch: int, max_len: int, dtype,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def _cache_update_cp(kc, vc, k, v, pos, mesh, axis: str = "model"):
+    """The one-token write into a cache sequence-sharded on ``axis``: the
+    rank at coordinate ``r`` holds positions ``[r * S_local, (r + 1) *
+    S_local)``, and only the rank that owns a row's position (clamped to
+    the whole cache's last, as ``cache_update``) writes it."""
+    s_local = kc.shape[1]
+    n = mesh.size(mesh.mesh_dim_names.index(axis))
+    idx = (pos.long().clamp(0, s_local * n - 1)
+           - mesh.get_local_rank(axis) * s_local)
+    own = ((idx >= 0) & (idx < s_local))[:, None, None]
+    slot = idx.clamp(0, s_local - 1)
+    rows = torch.arange(kc.shape[0], device=kc.device)
+    for cache, new in ((kc, k), (vc, v)):
+        cache[rows, slot] = torch.where(own, new[:, 0].to(cache.dtype),
+                                        cache[rows, slot])
+
+
 def _attn_block_decode(p, cfg: ModelConfig, x, kc, vc, pos, *,
-                       xk=None, xv=None, uniform_pos: bool = False):
+                       xk=None, xv=None, uniform_pos: bool = False,
+                       cp_mesh=None, sharded=None, collectives=None):
     """One-token attention block.  x (B,1,D); kc/vc (B,KL,K,hd), written
     in place; pos (B,).  ``xk``/``xv`` (B,enc_seq,K,hd): an
-    encoder-decoder layer's cross KV, read whole, never written."""
+    encoder-decoder layer's cross KV, read whole, never written.
+    ``cp_mesh``: kc/vc are this rank's block of a cache sequence-sharded
+    on ``model`` (a dense, not a ring, cache)."""
     kl = kc.shape[1]
     ring = bool(cfg.swa_window) or cfg.family == "hybrid"
-    h = layers.norm_apply(p["norm1"], x, cfg.norm_eps)
+    h = _attn_in(sharded, layers.norm_apply(p["norm1"], x, cfg.norm_eps))
     q, k, v = attention.qkv_proj(p["attn"], cfg, h)
     if cfg.pos_embed == "rope":
         q = layers.apply_rope(q, pos[:, None], cfg.rope_theta)
@@ -509,23 +662,29 @@ def _attn_block_decode(p, cfg: ModelConfig, x, kc, vc, pos, *,
         attention.cache_update_ring(kc, vc, k, v, pos)
         att = attention.attend_decode_swa(q, kc, vc, pos,
                                           cfg.swa_window or kl)
+    elif cp_mesh is not None:
+        _cache_update_cp(kc, vc, k, v, pos[:1].expand_as(pos)
+                         if uniform_pos else pos, cp_mesh)
+        att = attention.attend_decode_cp(q, kc, vc, pos + 1, cp_mesh,
+                                         collectives=collectives)
     else:
         if uniform_pos:
             attention.cache_update_uniform(kc, vc, k, v, pos[0])
         else:
             attention.cache_update(kc, vc, k, v, pos)
         att = attention.attend_decode(q, kc, vc, pos + 1)
-    x = x + attention.out_proj(p["attn"], cfg, att)
+    x = x + _attn_out(sharded, attention.out_proj(p["attn"], cfg, att))
     if xk is not None:
-        hx = layers.norm_apply(p["norm_x"], x, cfg.norm_eps)
+        hx = _attn_in(sharded, layers.norm_apply(p["norm_x"], x,
+                                                 cfg.norm_eps))
         b = hx.shape[0]
         qx = (hx @ p["xattn"]["wq"].to(hx.dtype)).reshape(
             b, 1, cfg.n_heads, cfg.resolved_head_dim)
         ax = attention.attend_decode(
             qx, xk, xv, torch.full((b,), xk.shape[1], device=hx.device))
-        x = x + attention.out_proj(p["xattn"], cfg, ax)
+        x = x + _attn_out(sharded, attention.out_proj(p["xattn"], cfg, ax))
     h = layers.norm_apply(p["norm2"], x, cfg.norm_eps)
-    return x + _ffn(p["ffn"], cfg, h)[0]
+    return x + _ffn(p["ffn"], cfg, h, sharded)[0]
 
 
 def _mamba_block_decode(p, cfg: ModelConfig, x, cache):
@@ -547,25 +706,33 @@ def _embed_tokens_decode(params, cfg: ModelConfig, tokens, pos):
 
 @torch.no_grad()
 def decode_step(params, cfg: ModelConfig, cache: Dict, tokens, pos, *,
-                uniform_pos: bool = False, cp_mesh=None):
+                fused_attention: bool = False, uniform_pos: bool = False,
+                cp_mesh=None, sharded=None, collectives=None):
     """One decode step.  tokens (B,1) integer; pos (B,) current positions
     (unused by a mamba model).  ``uniform_pos``: every row writes at
     ``pos[0]`` (static-batch decode; a hybrid's ring ignores it, as the
-    reference's does).
+    reference's does).  ``fused_attention`` is kept for signature parity:
+    the decode attention is the plain einsum on both devices.
+
+    ``cp_mesh``: context-parallel decode (the reference's
+    ``launch/steps.py`` passes it when the cache is sequence-sharded on
+    ``model``).  ``cache``'s dense KV is then this rank's block of
+    positions, the new token is written only by the rank that owns its
+    position, and attention is ``attention.attend_decode_cp`` (its
+    reductions through ``collectives``, a fresh service when None).  A
+    ring cache (sliding window, hybrid) ignores it, as the reference's
+    does.  ``sharded``: this rank's share of a mesh's compute (the module's
+    docstring).
 
     Returns (logits (B,V) float32, cache).  The cache is updated in place
     and returned: the port's form of the reference's donated cache.  An
     encoder-decoder's ``xk``/``xv`` are read by every layer's
     cross-attention and carried unchanged."""
-    if cp_mesh is not None:
-        raise NotImplementedError(
-            "decode_step(cp_mesh=...) belongs to the mesh-bound launchers "
-            "(ROADMAP queue 1 item 21, with launch/steps.py, its one caller); "
-            "attention.attend_decode_cp is ported")
     x = _embed_tokens_decode(params, cfg, tokens, pos)
     if not _uniform(cfg):
         x = _hybrid_decode(params, cfg, cache, x,
-                           torch.as_tensor(pos, device=x.device).long())
+                           torch.as_tensor(pos, device=x.device).long(),
+                           sharded)
     elif cfg.block_pattern[0] == "mamba":
         mc = cache["mamba"]
         for i, lp in enumerate(_unstack(params["layers"], cfg.n_layers)):
@@ -581,12 +748,13 @@ def decode_step(params, cfg: ModelConfig, cache: Dict, tokens, pos, *,
                 lp, cfg, x, cache["k"][i], cache["v"][i], pos,
                 xk=cache["xk"][i] if cross else None,
                 xv=cache["xv"][i] if cross else None,
-                uniform_pos=uniform_pos)
+                uniform_pos=uniform_pos, cp_mesh=cp_mesh, sharded=sharded,
+                collectives=collectives)
     x = layers.norm_apply(params["final_norm"], x, cfg.norm_eps)
     return lm_logits(params, cfg, x)[:, 0], cache
 
 
-def _hybrid_decode(params, cfg: ModelConfig, cache, x, pos):
+def _hybrid_decode(params, cfg: ModelConfig, cache, x, pos, sharded=None):
     """One token through every cycle: the mamba slots update their
     (cycle, slot) states in place, the shared block its cycle's ring."""
     nc = _n_cycles(cfg)
@@ -597,7 +765,8 @@ def _hybrid_decode(params, cfg: ModelConfig, cache, x, pos):
         for kind in cfg.block_pattern:
             if kind == "shared_attn":
                 x = _attn_block_decode(params["shared_attn"], cfg, x,
-                                       cache["k"][c], cache["v"][c], pos)
+                                       cache["k"][c], cache["v"][c], pos,
+                                       sharded=sharded)
             else:
                 x, new = _mamba_block_decode(
                     slots[si][c], cfg, x,
@@ -625,16 +794,20 @@ def _fill(kc, knew):
 
 @torch.no_grad()
 def prefill(params, cfg: ModelConfig, tokens, max_len: int, *,
-            encoder_frames=None, cache_dtype=torch.bfloat16):
+            encoder_frames=None, rules: Optional[MeshRules] = None,
+            cache_dtype=torch.bfloat16, fused_attention: bool = False,
+            sharded=None):
     """Run the full prompt, build the decode cache, return last-token
     logits.  tokens (B, S); ``encoder_frames`` (B, enc_seq, D) for an
     encoder-decoder model.  Returns (logits (B,V) float32, cache) laid
     out as ``init_cache`` lays it out: KV in ``cache_dtype`` sized for
     ``max_len`` (or the window; a hybrid's ring of at most 4096), the
     cross KV of every frame, the mamba conv states in ``cache_dtype`` and
-    SSM states float32."""
+    SSM states float32.  ``sharded``: this rank's share of a mesh's
+    compute (the module's docstring): its KV heads in the cache."""
     hidden, _, kv, (_, xkv, states) = forward(
-        params, cfg, tokens, encoder_frames=encoder_frames, collect_kv=True)
+        params, cfg, tokens, encoder_frames=encoder_frames, rules=rules,
+        collect_kv=True, fused_attention=fused_attention, sharded=sharded)
     cache = {}
     if states is not None:
         cache["mamba"] = {"conv": states["conv"].to(cache_dtype),

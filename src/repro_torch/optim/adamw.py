@@ -90,6 +90,12 @@ def init(params) -> Dict[str, Any]:
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
+def state_specs(param_specs_tree) -> Dict[str, Any]:
+    """Optimizer state shards exactly like the parameters."""
+    from repro_torch.models.sharding import P
+    return {"m": param_specs_tree, "v": param_specs_tree, "step": P()}
+
+
 def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(x.float()))
                           for x in flatten(tree).values()))
@@ -101,12 +107,15 @@ def _default_no_decay(path: str) -> bool:
 
 @torch.no_grad()
 def update(grads, state, params, cfg: AdamWConfig, *,
-           no_decay=_default_no_decay):
+           no_decay=_default_no_decay, grad_norm=None):
     """One AdamW step, in place.  Returns (params, state, metrics) with
-    metrics {"grad_norm" (before clipping), "lr"} as float32 tensors."""
+    metrics {"grad_norm" (before clipping), "lr"} as float32 tensors.
+    ``grad_norm``: the norm to clip by when ``grads``, ``state`` and
+    ``params`` are one rank's shards of the whole trees (the whole
+    gradient's norm, the same on every rank); None takes ``grads``'."""
     step = state["step"] + 1
     lr = schedule(cfg, step)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
     stepf = step.float()

@@ -1,6 +1,10 @@
 """Roofline report generator: dry-run JSON cache -> markdown tables.
 
-    PYTHONPATH=src python -m repro_torch.telemetry.report > experiments/ROOFLINE.md
+    PYTHONPATH=src python -m repro_torch.telemetry.report > experiments/ROOFLINE_torch.md
+
+It reads the port's dry run (``repro_torch.launch.dryrun``), whose
+records live in ``experiments/dryrun_torch``, apart from the
+reference's ``experiments/dryrun``.
 """
 from __future__ import annotations
 
@@ -9,7 +13,7 @@ import sys
 from pathlib import Path
 from typing import Dict, List
 
-DRYRUN = Path(__file__).resolve().parents[3] / "experiments" / "dryrun"
+DRYRUN = Path(__file__).resolve().parents[3] / "experiments" / "dryrun_torch"
 
 
 def load(mesh: str) -> List[Dict]:
@@ -67,7 +71,7 @@ def table(mesh: str) -> str:
 
 
 def main() -> int:
-    print("# Roofline report (generated from experiments/dryrun/)\n")
+    print("# Roofline report (generated from experiments/dryrun_torch/)\n")
     print("Terms per §Roofline: seconds/step/device on H100 SXM constants "
           "(989 TFLOP/s bf16, 3.35 TB/s HBM, 450 GB/s NVLink each way); "
           "`useful` = MODEL_FLOPS / compiled FLOPs; `frac` = useful-MFU "

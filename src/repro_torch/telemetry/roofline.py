@@ -9,7 +9,10 @@ executable; a PyTorch program has none, so:
   * bytes are the callable's inputs and outputs, each once, plus the
     caller's ``extra_bytes_per_device`` (kernel boundary traffic, for
     example :func:`fused_boundary_bytes`);
-  * collectives are parsed from HLO-like text where a caller has one
+  * collectives are the ones the callable issues through a
+    :class:`~repro_torch.core.services.collectives.CollectiveService`
+    (``analyze(collectives=...)``, read by :func:`collective_stats`), or
+    parsed from HLO-like text where a caller has one
     (:func:`parse_collectives`, shared with ``hlo_cost``).
 
 Hardware model: NVIDIA H100 SXM (NVIDIA's data sheet, dense rates at the
@@ -134,6 +137,19 @@ def parse_collectives(hlo_text: str) -> CollectiveStats:
     return st
 
 
+def collective_stats(traffic: Dict) -> CollectiveStats:
+    """A collective service's ``traffic`` ({(op, group size): [calls,
+    result bytes]}) as the roofline's counts, result bytes and ring wire
+    bytes per device."""
+    st = CollectiveStats()
+    for (op, g), (n, nbytes) in sorted(traffic.items()):
+        st.counts[op] = st.counts.get(op, 0) + n
+        st.bytes_naive[op] = st.bytes_naive.get(op, 0) + nbytes
+        st.bytes_wire[op] = (st.bytes_wire.get(op, 0.0)
+                             + nbytes * _wire_factor(op, g))
+    return st
+
+
 @dataclass
 class Roofline:
     flops_per_device: float
@@ -204,23 +220,33 @@ def _tensor_bytes(tree) -> int:
 
 
 def analyze(fn, *args, chips: int = 1, model_flops: float = 0.0,
-            extra_bytes_per_device: float = 0.0, **kwargs) -> Roofline:
+            extra_bytes_per_device: float = 0.0, collectives=None,
+            **kwargs) -> Roofline:
     """Roofline terms of one call ``fn(*args, **kwargs)``, which runs once.
 
     FLOPs are what ``FlopCounterMode`` counts over the call (a backward
     inside ``fn`` included); bytes are every tensor among the inputs and
-    the outputs once, plus ``extra_bytes_per_device``.  The reference's
-    ``xla_flops`` and ``xla_bytes`` (XLA's own ``cost_analysis()``, loop
-    bodies counted once) and its ``discount_scope`` (zeroing the HBM bytes
-    of regions that run as one Pallas kernel) have no counterpart: there is
-    no compiled module, so the two fields stay 0, and the call's traffic
-    is only its boundary's.  No collectives are counted."""
+    the outputs once, plus ``extra_bytes_per_device``; collectives are
+    those ``collectives`` (the call's collective service, if any) issues
+    during the call.  The reference's ``xla_flops`` and ``xla_bytes``
+    (XLA's own ``cost_analysis()``, loop bodies counted once) and its
+    ``discount_scope`` (zeroing the HBM bytes of regions that run as one
+    Pallas kernel) have no counterpart: there is no compiled module, so
+    the two fields stay 0, and the call's traffic is only its
+    boundary's."""
+    before = dict((k, list(v)) for k, v in
+                  (collectives.traffic.items() if collectives else ()))
     with FlopCounterMode(display=False) as counter:
         out = fn(*args, **kwargs)
     nbytes = _tensor_bytes((args, kwargs)) + _tensor_bytes(out)
+    traffic = {}
+    for k, (n, b) in (collectives.traffic.items() if collectives else ()):
+        n0, b0 = before.get(k, (0, 0))
+        if n > n0:
+            traffic[k] = [n - n0, b - b0]
     return Roofline(flops_per_device=float(counter.get_total_flops()),
                     bytes_per_device=nbytes + extra_bytes_per_device,
-                    coll=CollectiveStats(), chips=chips,
+                    coll=collective_stats(traffic), chips=chips,
                     model_flops=model_flops)
 
 

@@ -235,3 +235,18 @@ def test_decode_matches_forward(model):
                                       torch.full((1,), t))
         np.testing.assert_allclose(logits.numpy(), full[:, t].numpy(),
                                    atol=ATOL, err_msg=f"decode@{t}")
+
+
+def test_assignment_cells_accounted():
+    """Twin of the reference's: 40 cells, each applicable or a documented
+    skip; exactly the 7 pure full-attention archs skip ``long_500k``, and
+    every cell's verdict and reason equal the reference's."""
+    from repro.configs import all_cells as jall_cells
+    from repro_torch.configs import all_cells
+    cells = [(c.arch_id, s.name, ok, why) for c, s, ok, why in all_cells()]
+    assert len(cells) == 40
+    skipped = [(a, s) for a, s, ok, _ in cells if not ok]
+    assert len(skipped) == 7
+    assert all(s == "long_500k" for _, s in skipped)
+    assert cells == [(c.arch_id, s.name, ok, why)
+                     for c, s, ok, why in jall_cells()]

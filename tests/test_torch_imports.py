@@ -2,6 +2,7 @@
 import with ``jax`` and ``repro`` blocked, and no source of the port
 names either in an import statement."""
 import ast
+import json
 import os
 import pathlib
 import re
@@ -101,3 +102,50 @@ def test_tp_modules_import_alone_and_start_no_process_group():
                          cwd=ROOT)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "no process group"
+
+
+_LAUNCH_CHILD = r"""
+import importlib, importlib.abc, json, sys, tempfile
+from pathlib import Path
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "repro"):
+            raise ImportError(f"blocked import of {name}")
+        return None
+
+sys.meta_path.insert(0, Block())
+steps = importlib.import_module("repro_torch.launch.steps")
+dryrun = importlib.import_module("repro_torch.launch.dryrun")
+import torch.distributed as dist
+out = {"after_import": dist.is_initialized()}
+tmp = Path(tempfile.mkdtemp())
+rec = dryrun.run_cell("smollm-135m", "decode_32k", "pod", out_dir=tmp)
+out["cell"] = rec["status"]
+out["after_cell"] = dist.is_initialized()
+dist.init_process_group("gloo", init_method=f"file://{tmp}/rdv", rank=0,
+                        world_size=1)
+try:
+    dryrun.run_cell("smollm-135m", "train_4k", "pod", out_dir=tmp)
+    out["refused"] = False
+except RuntimeError as e:
+    out["refused"] = "already has a process group" in str(e)
+dist.destroy_process_group()
+print(json.dumps(out))
+"""
+
+
+def test_launch_modules_import_alone_and_the_dry_run_owns_its_group():
+    """``launch/steps.py`` and ``launch/dryrun.py`` import with ``jax``
+    and ``repro`` blocked and start no process group; a dry-run cell
+    builds the production mesh on a fake group of its own, runs, and
+    leaves no group behind, and it refuses to run in a process that
+    already has one."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
+    out = subprocess.run([sys.executable, "-c", _LAUNCH_CHILD], env=env,
+                         capture_output=True, text=True, timeout=120,
+                         cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got == {"after_import": False, "cell": "ok", "after_cell": False,
+                   "refused": True}

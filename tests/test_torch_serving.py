@@ -18,8 +18,11 @@ from repro.models import transformer as JT
 from repro_torch.configs import get_config
 from repro_torch.core.services.mmu import MMU, MMUConfig
 from repro_torch.models import transformer as T
+from repro_torch.launch.mesh import run_ranks
 from repro_torch.models.params import from_reference
 from repro_torch.serve.engine import ServingEngine
+
+import _torch_mesh_train_ranks as ranks
 
 torch.set_num_threads(1)
 ATOL = 1e-4
@@ -165,6 +168,9 @@ def test_dense_cache_layout_and_refusals(smollm):
     assert c["v"].dtype == torch.bfloat16
     ring = get_config("h2o-danube-3-4b").reduced()
     assert T.init_cache(ring, 1, 500, device="cpu")["k"].shape[2] == 64
-    with pytest.raises(NotImplementedError, match="item 21"):
-        T.decode_step(params, cfg, c, torch.zeros(2, 1, dtype=torch.long),
-                      torch.zeros(2, dtype=torch.long), cp_mesh=object())
+    # cp_mesh (context-parallel decode over a sequence-sharded cache) is
+    # ported: two gloo ranks, each with its half of the positions, give
+    # the dense decode's logits, and each keeps its half of the cache
+    for o in run_ranks(ranks.cp_decode, 2, "smollm-135m", device="cpu",
+                       backend="gloo", timeout_s=60.0, deadline_s=120.0):
+        assert o["err"] <= 1e-4 and o["cache_err"] <= 1e-5

@@ -374,7 +374,8 @@ def test_hll_registers_equal_reference():
 
 def test_mlp_equals_reference_on_carried_weights():
     jparams = JN.init_mlp(jax.random.PRNGKey(0))
-    params = N.mlp_from_reference(jax.tree.map(np.asarray, jparams))
+    params = N.mlp_from_reference(jax.tree.map(np.asarray, jparams),
+                                  device="cpu")
     x = np.random.RandomState(7).randn(300, 593).astype(np.float32)
     got = N.mlp_apply(params, torch.from_numpy(x)).numpy()
     want = np.asarray(JN.mlp_apply(jparams, jnp.asarray(x)))

@@ -158,9 +158,17 @@ def test_ssd_decode_matches_reference():
 
 
 def test_ops_ssd_refuses_a_device_without_a_kernel():
-    ins = [t.to("meta") for t in _t(*_inputs(1, 8, 2, 16, 1, 8))]
-    with pytest.raises(ValueError, match="no kernel for device meta"):
-        ops.ssd(*ins, chunk=8)
+    """A device with neither a kernel nor the plain version raises.
+    ``meta`` tensors (the dry run's) take the plain version, which on
+    them computes shapes only: the CPU run's shapes and dtypes."""
+    import types
+    with pytest.raises(ValueError, match="no kernel for device xpu"):
+        ops._device(types.SimpleNamespace(device=torch.device("xpu")))
+    cpu = _t(*_inputs(1, 8, 2, 16, 1, 8))
+    want = ops.ssd(*cpu, chunk=8)
+    got = ops.ssd(*[t.to("meta") for t in cpu], chunk=8)
+    for g, w in zip(got, want):
+        assert g.is_meta and (g.shape, g.dtype) == (w.shape, w.dtype)
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():

@@ -32,8 +32,11 @@ from repro.configs import get_config as jget
 from repro.models import ssm as jssm
 from repro.models import transformer as JT
 from repro_torch.configs import get_config
+from repro_torch.launch.mesh import run_ranks
 from repro_torch.models import ssm, transformer as T
 from repro_torch.models.params import from_reference
+
+import _torch_mesh_train_ranks as ranks
 
 torch.set_num_threads(1)
 
@@ -266,11 +269,13 @@ def test_init_cache_matches_prefill_layout(model):
 def test_dense_attention_cache_waits_for_its_slice():
     """The dense attention cache has landed (ROADMAP item 9; its twins
     are in ``tests/test_torch_serving.py``): ``init_cache`` lays out
-    per-layer KV beside the mamba states, and what still waits for its
-    slice raises."""
+    per-layer KV beside the mamba states.  ``decode_step(cp_mesh=...)``
+    has landed too (item 21): a mamba model's cache has no sequence to
+    shard, so on two gloo ranks it decodes exactly as without the mesh,
+    as the reference's mamba decode ignores ``cp_mesh``."""
     cfg = get_config("smollm-135m").reduced()
     c = T.init_cache(cfg, 1, 8, device="cpu")
     assert set(c) == {"k", "v"} and c["k"].shape[:3] == (cfg.n_layers, 1, 8)
-    with pytest.raises(NotImplementedError, match="item 21"):
-        T.decode_step({}, cfg, c, torch.zeros(1, 1, dtype=torch.long),
-                      torch.zeros(1), cp_mesh=object())
+    for o in run_ranks(ranks.cp_decode, 2, "mamba2-1.3b", device="cpu",
+                       backend="gloo", timeout_s=60.0, deadline_s=120.0):
+        assert o["err"] == 0.0 and o["cache_err"] == 0.0

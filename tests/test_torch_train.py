@@ -669,10 +669,20 @@ def test_trainer_restarts_on_a_fault_plan(tiny, tmp_path):
 @pytest.mark.parametrize("change", [dict(microbatches=2)],
                          ids=["microbatches"])
 def test_trainer_levers_of_later_slices_raise(tiny, tmp_path, change):
+    """``microbatches`` no longer raises: the mesh-less Trainer accepts
+    and ignores it, as the reference's does (its mesh step is the one
+    that accumulates; ``tests/test_torch_train_mesh.py``), so the run is
+    bit-identical to one without it."""
     cfg, shape = tiny
-    with pytest.raises(NotImplementedError):
-        Trainer(cfg, shape, TrainConfig(ckpt_dir=str(tmp_path), **change),
-                device="cpu")
+    logs = []
+    for name, kw in (("a", {}), ("b", change)):
+        t = Trainer(cfg, shape, TrainConfig(
+            steps=2, log_every=1, ckpt_every=0, seed=1,
+            batch_timeout_s=_NO_SKIP_S, ckpt_dir=str(tmp_path / name),
+            **kw), device="cpu")
+        t.run()
+        logs.append([(m["loss"], m["grad_norm"]) for m in t.metrics_log])
+    assert logs[0] == logs[1]
 
 
 def test_trainer_steps_the_hybrid_and_restarts_bit_identical(tmp_path):
@@ -738,6 +748,34 @@ def test_ssm_hybrid_and_moe_trainer_losses_track_the_reference(arch,
         np.testing.assert_allclose(mine["lr"], ref["lr"], rtol=1e-6)
         np.testing.assert_allclose(mine["grad_norm"], ref["grad_norm"],
                                    rtol=1e-4)
+
+
+def test_launcher_ignores_microbatches_as_the_reference(tmp_path, capsys,
+                                                       monkeypatch):
+    """The reference's launcher without a mesh trains with
+    ``--microbatches 2`` exactly as with 1 (its mesh-less Trainer ignores
+    the field); the port's does the same.  Both start from the JAX
+    package's initial weights (the port's ``init_params`` is patched to
+    return them): losses within 1e-4 over 3 steps."""
+    from repro.launch import train as jlaunch_train
+    argv = ["--reduced", "--steps", "3", "--seq-len", "16", "--batch", "4",
+            "--microbatches", "2", "--ckpt-every", "0", "--seed", "4"]
+    assert jlaunch_train.main(argv + ["--ckpt-dir", str(tmp_path / "j")]) \
+        == 0
+    ref = json.loads(capsys.readouterr().out)
+    jparams = _np_tree(JT.init_params(jax.random.PRNGKey(4),
+                                      jget("smollm-135m").reduced(),
+                                      dtype=jnp.float32))
+    monkeypatch.setattr(
+        T, "init_params", lambda cfg, *, generator, dtype, device:
+        from_reference(jparams, dtype=dtype, device=device))
+    assert launch_train.main(argv + ["--ckpt-dir", str(tmp_path / "p"),
+                                     "--device", "cpu"]) == 0
+    mine = json.loads(capsys.readouterr().out)
+    assert [m["step"] for m in mine["log"]] == [1, 2, 3]
+    for m, r in zip(mine["log"], ref["log"]):
+        np.testing.assert_allclose(m["loss"], r["loss"], atol=1e-4)
+        np.testing.assert_allclose(m["grad_norm"], r["grad_norm"], rtol=1e-4)
 
 
 def test_launcher_trains_on_the_cpu(tmp_path, capsys):
