@@ -160,7 +160,13 @@ three times (``padded_trace``).  Phases, in order:
      data 2, model 2) mesh: hierarchical vs flat all-reduce, context-
      parallel decode attention at smollm's head layout over a 4096-token
      cache vs the dense one, the pod 0 -> pod 1 KV hand-off; the count of
-     collective operands copied through the host;
+     collective operands copied through the host; at TP 2 a
+     ``ServingGateway(admission="slo")`` in front of a fresh fp32 engine
+     (8 arrivals in three waves, 16 new tokens each, one expired queued
+     and one refused as infeasible): every rank's streams, refusals and
+     dispatches equal rank 0's, the greedy streams the gateway-less
+     engine's, paged launches = 30 x decode steps at the local heads,
+     TTFT/TPOT p50 from arrival (gloo staging);
   8. profiles: where a steady decode step (every slot full), a training
      step, a mamba prefill call and a mamba decode step spend their time
      (host wall untraced and traced, device busy time, the device's idle
@@ -475,8 +481,23 @@ BWD_CASES += [WHISPER_CROSS_FA, WHISPER_SELF_FA, WHISPER_ENC_FA]
 # 2, model 2) mesh: the hierarchical all-reduce against the flat one at
 # atol 1e-5, context-parallel decode attention at smollm's head layout
 # over a 4096-token cache (TP_CP) against the dense one at atol 1e-4 (fp32),
-# and the pod 0 -> pod 1 KV hand-off, exact.
+# and the pod 0 -> pod 1 KV hand-off, exact.  The fp32 TP 2 ranks also
+# put a ``ServingGateway(admission="slo")`` in front of a fresh TP 2
+# engine (its backfill decided on model-rank 0, replayed on rank 1): the
+# same TP_REQUESTS prompts arrive in three waves, TP_GW_NEW new tokens
+# each; the first arrival's deadline passes before its first step
+# (SLO_EXPIRED), the one arriving after the first step asks for a
+# deadline no service can meet (SLO_INFEASIBLE from the warm EWMAs), and
+# the rest of the first wave asks for TP_GW_LOOSE_S.  After the first
+# wave's submits rank 1's gateway clock reads TP_GW_AHEAD_S ahead, past
+# those deadlines, so rank 1 expires nothing only if it replays rank 0's
+# decisions.  Each rank's streams, refusals and dispatches equal rank
+# 0's, and its greedy streams the gateway-less TP engine's first
+# TP_GW_NEW tokens.
 TP_REQUESTS, TP_STEPS, TP_LOGITS_ATOL, TP_SEED = 8, 32, 1e-3, 19
+TP_GW_NEW, TP_GW_WAVES, TP_GW_TIGHT_S = 16, {0: [0, 1, 2, 3], 1: [4],
+                                             2: [5, 6, 7]}, 1e-6
+TP_GW_LOOSE_S, TP_GW_AHEAD_S = 60.0, 100.0
 TP_MMU = dict(page_size=16, n_pages=512)
 TP_TIMEOUT_S, TP_DEADLINE_S = 60, 240
 TP_CP = (4, 9, 3, 64, 4096)                # batch, H, K, head dim, sequence
@@ -4039,63 +4060,135 @@ def _teacher_forced(params, run_cfg, prompts, forced, hooks):
     return logits0, torch.stack(greedy).cpu().numpy()
 
 
-def _tp_engine(cfg, params, mesh, svc, prompts, dev):
-    """The TP engine through its entry point: every prompt submitted,
-    stepped to completion with each step's collectives counted and every
-    paged-kernel call's head counts recorded, launches counted from 0."""
+def _tp_serving_engine(cfg, params, mesh, svc, dev):
     from repro_torch.core.services.mmu import MMU, MMUConfig
-    from repro_torch.serve import paged_model as PM
     from repro_torch.serve.engine import ServingEngine
+    return ServingEngine(cfg, params, MMU(MMUConfig(**TP_MMU)),
+                         max_batch=TP_REQUESTS, max_len=1024, mesh=mesh,
+                         collectives=svc, device=dev)
+
+
+def _tp_drive(eng, drive):
+    """Run ``drive()`` with launches counted from 0 and every paged-kernel
+    call's head counts recorded; check that the paged kernel, and no
+    other, launched once per layer a decode step at the rank's local
+    heads.  Returns the seconds ``drive`` took to the last sync, the
+    heads and the paged launches counted."""
+    from repro_torch.serve import paged_model as PM
     heads, base = set(), PM.paged_decode
 
     def spy(q, k_pages, *args, **kw):
         heads.add((q.shape[1], k_pages.shape[2]))
         return base(q, k_pages, *args, **kw)
 
-    mmu = MMU(MMUConfig(**TP_MMU))
-    eng = ServingEngine(cfg, params, mmu, max_batch=TP_REQUESTS,
-                        max_len=1024, mesh=mesh, collectives=svc,
-                        device=dev)
-    for p in prompts:
-        eng.submit(p, max_new_tokens=TP_STEPS)
-    decode_calls = []
     PM.paged_decode = spy
     try:
         _zero_counts()
         t0 = time.perf_counter()
-        while eng.pending():
-            c0, p0, s0 = svc.calls, eng.prefill_obs, eng.steps
-            eng.step()
-            if eng.steps > s0 and eng.prefill_obs == p0:
-                decode_calls.append(svc.calls - c0)
+        drive()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = _launch_counts()
     finally:
         PM.paged_decode = base
-    check(len(eng.completed) == TP_REQUESTS and all(
-        len(r.out_tokens) == TP_STEPS for r in eng.completed),
-          "TP engine: a request did not complete with all its tokens")
-    check(mmu.utilization()["pages_used"] == 0, "TP engine leaked pages")
-    want = dict({k: 0 for k in counts}, paged=cfg.n_layers * eng.steps)
+    check(eng.mmu.utilization()["pages_used"] == 0, "TP engine leaked pages")
+    want = dict({k: 0 for k in counts}, paged=eng.cfg.n_layers * eng.steps)
     check(counts == want, f"TP engine launches {counts}, not {want}")
     local = (eng.tp.local_cfg.n_heads, eng.tp.local_cfg.n_kv_heads)
     check(heads == {local}, f"TP engine: paged calls at heads {heads}, "
                             f"not the local {local}")
+    return wall, sorted(heads), counts["paged"]
+
+
+def _tp_engine(cfg, params, mesh, svc, prompts, dev):
+    """The TP engine through its entry point: every prompt submitted,
+    stepped to completion with each step's collectives counted (launches
+    and heads checked by ``_tp_drive``)."""
+    eng = _tp_serving_engine(cfg, params, mesh, svc, dev)
+    for p in prompts:
+        eng.submit(p, max_new_tokens=TP_STEPS)
+    decode_calls = []
+
+    def drive():
+        while eng.pending():
+            c0, p0, s0 = svc.calls, eng.prefill_obs, eng.steps
+            eng.step()
+            if eng.steps > s0 and eng.prefill_obs == p0:
+                decode_calls.append(svc.calls - c0)
+
+    wall, heads, launches = _tp_drive(eng, drive)
+    check(len(eng.completed) == TP_REQUESTS and all(
+        len(r.out_tokens) == TP_STEPS for r in eng.completed),
+          "TP engine: a request did not complete with all its tokens")
     st = np.asarray(eng.decode_step_times) * 1e3
     return eng, {
-        "decode_steps": eng.steps, "paged_launches": counts["paged"],
-        "paged_heads": sorted(heads), "wall_s": wall,
+        "decode_steps": eng.steps, "paged_launches": launches,
+        "paged_heads": heads, "wall_s": wall,
         "collectives_per_decode_step": sorted(set(decode_calls)),
         "decode_step_ms_p50": float(np.percentile(st, 50)),
         "decode_step_ms_p90": float(np.percentile(st, 90)),
         "streams": {r.rid: list(r.out_tokens) for r in eng.completed}}
 
 
+def _tp_gateway(cfg, params, mesh, svc, prompts, dev):
+    """A ``ServingGateway(admission="slo")`` in front of a fresh TP engine
+    through its entry points (``submit``, ``step``): ``prompts`` arrive in
+    the waves of TP_GW_WAVES (by gateway step), TP_GW_NEW new tokens
+    each; arrivals 0 and 4 ask for a deadline of TP_GW_TIGHT_S, so the
+    first expires queued and the second, once the EWMAs have a sample, is
+    refused at the door; arrivals 1-3 ask for TP_GW_LOOSE_S.  From the
+    first step on, rank 1's gateway clock reads TP_GW_AHEAD_S ahead.
+    ``min_obs=1``: one prefill and one decode sample warm the service
+    estimate.  Returns the streams by gid, the refusals and the
+    latencies."""
+    from repro_torch.core.port import PortError
+    from repro_torch.serve import gateway as gateway_module
+    from repro_torch.serve.gateway import ServingGateway
+    eng = _tp_serving_engine(cfg, params, mesh, svc, dev)
+    gw = ServingGateway(eng, admission="slo", min_obs=1)
+    deadline = {0: TP_GW_TIGHT_S, 1: TP_GW_LOOSE_S, 2: TP_GW_LOOSE_S,
+                3: TP_GW_LOOSE_S, 4: TP_GW_TIGHT_S}
+
+    class AheadClock:
+        @staticmethod
+        def perf_counter():
+            return time.perf_counter() + TP_GW_AHEAD_S
+
+    def drive():
+        step = 0
+        while step <= max(TP_GW_WAVES) or gw.pending():
+            for i in TP_GW_WAVES.get(step, ()):
+                try:
+                    gw.submit(prompts[i], max_new_tokens=TP_GW_NEW,
+                              deadline_s=deadline.get(i))
+                except PortError:
+                    pass                     # typed; kept in gw.rejected
+            if step == 0 and eng.tp.rank == 1:
+                gateway_module.time = AheadClock
+            gw.step()
+            step += 1
+
+    try:
+        wall, heads, launches = _tp_drive(eng, drive)
+    finally:
+        gateway_module.time = time
+    st = gw.stats()
+    return {"streams": {s.gid: list(s.tokens) for s in gw.completed},
+            "expired": [s.gid for s in gw.rejected
+                        if s.error.kind == "slo_expired"],
+            "rejected": [(s.gid, s.error.kind) for s in gw.rejected],
+            "dispatched": gw.dispatched, "decode_steps": eng.steps,
+            "paged_launches": launches, "paged_heads": heads,
+            "wall_s": wall,
+            "ttft_p50_ms": st["ttft_p50_ms"],
+            "tpot_p50_ms": st["tpot_p50_ms"]}
+
+
 def tp_rank(rank, world, dev, forced, bf16):
     """One rank of phase 19's TP 2 or 3 run (``world`` ranks on the
     model dim): the teacher-forced fp32 check through the TP context's
-    functions, the fp32 engine, and with ``bf16`` the bf16 engine."""
+    functions, the fp32 engine, at TP 2 the gateway in front of a fresh
+    fp32 engine, and with ``bf16`` the bf16 engine."""
     from repro_torch.configs import get_config
     from repro_torch.core.services.collectives import CollectiveService
     from repro_torch.launch.mesh import make_host_mesh
@@ -4116,6 +4209,8 @@ def tp_rank(rank, world, dev, forced, bf16):
            "local_d_ff": int(tp.params["layers"]["ffn"]["w_up"].shape[-1]),
            "logits0": logits0, "greedy": greedy}
     _, out["fp32"] = _tp_engine(cfg, full, mesh, svc, prompts, dev)
+    if world == 2:
+        out["gateway"] = _tp_gateway(cfg, full, mesh, svc, prompts, dev)
     del tp, full
     if bf16:
         _, out["bf16"] = _tp_engine(cfg, _tp_weights(cfg, torch.bfloat16),
@@ -4168,6 +4263,47 @@ def mesh8_rank(rank, world, dev):
             "host_copies": svc.host_copies + flat.host_copies}
 
 
+def _check_tp_gateway(outs, card):
+    """Phase 19's gateway on every TP 2 rank: rank 0's refusals and
+    streams as designed, every rank's equal to rank 0's, the greedy
+    streams equal to the gateway-less engine's first TP_GW_NEW tokens
+    (engine rid = prompt index + 1, gateway gid = prompt index)."""
+    r0 = outs[0]["gateway"]
+    served = [i for i in range(TP_REQUESTS) if i not in (0, 4)]
+    check(sorted(r0["streams"]) == served and all(
+        len(t) == TP_GW_NEW for t in r0["streams"].values()),
+          f"TP gateway served {sorted(r0['streams'])}, not {served} with "
+          f"{TP_GW_NEW} tokens each")
+    check(r0["rejected"] == [(0, "slo_expired"), (4, "slo_infeasible")],
+          f"TP gateway refusals {r0['rejected']}")
+    check(r0["dispatched"] == len(served),
+          f"TP gateway dispatched {r0['dispatched']}")
+    for o in outs:
+        g, tag = o["gateway"], f"TP 2 gateway rank {o['rank']}"
+        for k in ("streams", "expired", "rejected", "dispatched",
+                  "decode_steps"):
+            check(g[k] == r0[k], f"{tag}: {k} {g[k]} differ from rank "
+                                 f"0's {r0[k]}")
+        engine = o["fp32"]["streams"]
+        for gid, toks in g["streams"].items():
+            check(toks == engine[gid + 1][:TP_GW_NEW],
+                  f"{tag}: gid {gid}'s greedy stream differs from the "
+                  "engine's without the gateway")
+    print("[19] " + json.dumps({
+        "card": card, "gateway": "ServingGateway(admission='slo', "
+        "min_obs=1) on a TP 2 engine, fp32", "ranks_on": "cuda:0, gloo",
+        "arrivals": TP_REQUESTS, "new_tokens": TP_GW_NEW,
+        "served": len(r0["streams"]), "refused": r0["rejected"],
+        "decode_steps": r0["decode_steps"],
+        "paged_launches": r0["paged_launches"],
+        "paged_heads": r0["paged_heads"],
+        "ttft_p50_ms": r0["ttft_p50_ms"], "tpot_p50_ms": r0["tpot_p50_ms"],
+        "wall_s": [o["gateway"]["wall_s"] for o in outs],
+        "note": "rank 0's TTFT and TPOT from arrival (rank 1's gateway "
+                f"clock runs {TP_GW_AHEAD_S} s ahead), gloo staging "
+                "through the host on one card, not a TP speed"}))
+
+
 def phase_tensor_parallel(card):
     """Phase 19: tensor-parallel serving and the multi-rank collectives on
     the card (see TP_REQUESTS).  Returns rank 0's paged launches of the
@@ -4210,6 +4346,8 @@ def phase_tensor_parallel(card):
         r0 = outs[0]
         if world == 3:
             launches = r0["fp32"]["paged_launches"]
+        else:
+            _check_tp_gateway(outs, card)
         print("[19] " + json.dumps({
             "card": card, "model": "smollm-135m (random weights)",
             "tp": world, "ranks_on": "cuda:0, gloo",

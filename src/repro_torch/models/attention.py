@@ -1,5 +1,6 @@
-"""Attention: GQA projections (the reference's ``x @ W`` layout), the
-full-sequence ``attend_chunked`` and the dense-cache decode paths.
+"""Attention: GQA projection weights (``attn_init``) and projections (the
+reference's ``x @ W`` layout), the full-sequence ``attend_chunked`` and
+the dense-cache decode paths.
 
 Twin of ``repro.models.attention``.  The reference documents
 ``attend_chunked(fused=True)`` as the region that executes as the
@@ -34,9 +35,29 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import ops
+from repro_torch.models import layers
 from repro_torch.models.sharding import MeshRules, P
 
 NEG_INF = -1e30
+
+
+def attn_init(gen: torch.Generator, cfg: ModelConfig, *,
+              dtype=torch.float32):
+    """The reference's projection weights, drawn from ``gen`` in the
+    order wq, wk, wv, wo; ``qkv_bias`` adds zero biases."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    h, k = cfg.n_heads, cfg.n_kv_heads
+    p = {
+        "wq": layers.dense_init(gen, d, h * hd, dtype=dtype),
+        "wk": layers.dense_init(gen, d, k * hd, dtype=dtype),
+        "wv": layers.dense_init(gen, d, k * hd, dtype=dtype),
+        "wo": layers.dense_init(gen, h * hd, d, dtype=dtype,
+                                scale=1.0 / (h * hd) ** 0.5),
+    }
+    if cfg.qkv_bias:
+        for b, n in (("bq", h * hd), ("bk", k * hd), ("bv", k * hd)):
+            p[b] = layers.bias_init(n, dtype=dtype, device=gen.device)
+    return p
 
 
 def attn_specs(cfg: ModelConfig, rules: MeshRules) -> dict:

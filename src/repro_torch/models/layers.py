@@ -1,15 +1,45 @@
-"""Base layers: norms, rotary and sinusoidal embeddings, embedding lookup.
+"""Base layers: dense, norm and embedding inits, norms, rotary and
+sinusoidal embeddings, embedding lookup.
 
-Twin of ``repro.models.layers``.  Norms upcast to float32 and cast back;
-RoPE uses the split-half convention (first half / second half of the head
-dimension rotate together), not the interleaved one.  ``norm_specs`` and
-``embed_specs`` give the matching partition specs.
+Twin of ``repro.models.layers``.  The ``*_init`` functions take a
+``torch.Generator`` where the reference takes a JAX key, draw float32 on
+the generator's device and cast to ``dtype``; shapes and scales are the
+reference's, the random numbers are not (no threefry).  Norms upcast to
+float32 and cast back; RoPE uses the split-half convention (first half /
+second half of the head dimension rotate together), not the interleaved
+one.  ``norm_specs`` and ``embed_specs`` give the matching partition
+specs.
 """
 from __future__ import annotations
+
+import math
+from typing import Optional
 
 import torch
 
 from repro_torch.models.sharding import MeshRules, P
+
+
+# ---------------------------------------------------------------- dense ----
+def dense_init(gen: torch.Generator, in_dim: int, out_dim: int, *,
+               dtype=torch.float32, scale: Optional[float] = None):
+    scale = scale if scale is not None else 1.0 / math.sqrt(in_dim)
+    return (torch.randn(in_dim, out_dim, generator=gen, device=gen.device,
+                        dtype=torch.float32) * scale).to(dtype)
+
+
+def bias_init(dim: int, *, dtype=torch.float32, device=None):
+    return torch.zeros(dim, dtype=dtype, device=device)
+
+
+# ---------------------------------------------------------------- norms ----
+def rmsnorm_init(dim: int, *, dtype=torch.float32, device=None):
+    return {"scale": torch.ones(dim, dtype=dtype, device=device)}
+
+
+def layernorm_init(dim: int, *, dtype=torch.float32, device=None):
+    return {"scale": torch.ones(dim, dtype=dtype, device=device),
+            "bias": torch.zeros(dim, dtype=dtype, device=device)}
 
 
 def rmsnorm(params, x, eps: float = 1e-5):
@@ -70,6 +100,14 @@ def sinusoidal_positions(n_pos: int, dim: int, device=None):
     """``sinusoidal_at`` of positions 0 .. n_pos - 1: (n_pos, dim) float32."""
     return sinusoidal_at(torch.arange(n_pos, dtype=torch.float32,
                                       device=device), dim)
+
+
+# ------------------------------------------------------------ embedding ----
+def embed_init(gen: torch.Generator, vocab: int, dim: int, *,
+               dtype=torch.float32):
+    return {"table": (torch.randn(vocab, dim, generator=gen,
+                                  device=gen.device, dtype=torch.float32)
+                      * 0.02).to(dtype)}
 
 
 def embed_lookup(params, ids):

@@ -37,7 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import mlp
+from repro_torch.models import layers, mlp
 from repro_torch.models.sharding import MeshRules, P
 
 
@@ -51,16 +51,14 @@ def moe_init(gen: torch.Generator, cfg: ModelConfig, *,
     ``gen`` on its device; the router stays float32."""
     e = cfg.moe
     d, f = cfg.d_model, e.d_ff_expert
-    dev = gen.device
-
-    def normal(shape, scale):
-        return torch.randn(shape, generator=gen, device=dev) * scale
 
     def ew(a, b):
-        return normal((e.n_experts, a, b), 1.0 / math.sqrt(a)).to(dtype)
+        return (torch.randn((e.n_experts, a, b), generator=gen,
+                            device=gen.device)
+                * (1.0 / math.sqrt(a))).to(dtype)
 
     p = {
-        "router": normal((d, e.n_experts), 1.0 / math.sqrt(d)),
+        "router": layers.dense_init(gen, d, e.n_experts),
         "w_gate": ew(d, f),
         "w_up": ew(d, f),
         "w_down": ew(f, d),
@@ -68,9 +66,9 @@ def moe_init(gen: torch.Generator, cfg: ModelConfig, *,
     if e.n_shared_experts:
         fs = e.n_shared_experts * f
         p["shared"] = {
-            "w_gate": normal((d, fs), 1.0 / math.sqrt(d)).to(dtype),
-            "w_up": normal((d, fs), 1.0 / math.sqrt(d)).to(dtype),
-            "w_down": normal((fs, d), 1.0 / math.sqrt(fs)).to(dtype),
+            "w_gate": layers.dense_init(gen, d, fs, dtype=dtype),
+            "w_up": layers.dense_init(gen, d, fs, dtype=dtype),
+            "w_down": layers.dense_init(gen, fs, d, dtype=dtype),
         }
     return p
 

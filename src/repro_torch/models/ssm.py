@@ -85,16 +85,15 @@ def mamba_init(gen: torch.Generator, cfg: ModelConfig, *,
     di, nh = s.d_inner(d), s.n_heads(d)
     gn = s.n_groups * s.d_state
     dev = gen.device
-
-    def dense(i, o):
-        return torch.randn(i, o, generator=gen, device=dev) / math.sqrt(i)
-
     # dt bias init so softplus(dt_bias) spans [1e-3, 1e-1] (mamba2 default)
     u = torch.rand(nh, generator=gen, device=dev)
     dt = torch.exp(u * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3))
     p = {
-        "wz": dense(d, di), "wx": dense(d, di), "wB": dense(d, gn),
-        "wC": dense(d, gn), "wdt": dense(d, nh),
+        "wz": layers.dense_init(gen, d, di),
+        "wx": layers.dense_init(gen, d, di),
+        "wB": layers.dense_init(gen, d, gn),
+        "wC": layers.dense_init(gen, d, gn),
+        "wdt": layers.dense_init(gen, d, nh),
         "conv_w": torch.randn(s.d_conv, di + 2 * gn, generator=gen,
                               device=dev) / math.sqrt(s.d_conv),
         "conv_b": torch.zeros(di + 2 * gn, device=dev),
@@ -103,7 +102,7 @@ def mamba_init(gen: torch.Generator, cfg: ModelConfig, *,
                                         device=dev)),
         "D": torch.ones(nh, device=dev),
         "norm": {"scale": torch.ones(di, device=dev)},
-        "wo": dense(di, d),
+        "wo": layers.dense_init(gen, di, d),
     }
     return cast(p, dev, dtype)
 

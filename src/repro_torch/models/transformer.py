@@ -42,7 +42,6 @@ takes it; its ``constrain`` hints are the identity here.
 from __future__ import annotations
 
 import functools
-import math
 from typing import Any, Dict, Optional
 
 import torch
@@ -71,53 +70,26 @@ def _is_moe_layer(cfg: ModelConfig) -> bool:
     return cfg.moe is not None
 
 
-def _normal(gen, shape, scale):
-    return torch.randn(shape, generator=gen, device=gen.device,
-                       dtype=torch.float32) * scale
-
-
-def _dense(gen, in_dim: int, out_dim: int, scale: Optional[float] = None):
-    scale = scale if scale is not None else 1.0 / math.sqrt(in_dim)
-    return _normal(gen, (in_dim, out_dim), scale)
-
-
-def _norm(cfg: ModelConfig):
-    p = {"scale": torch.ones(cfg.d_model)}
-    if cfg.act == "gelu":                     # whisper-style LayerNorm
-        p["bias"] = torch.zeros(cfg.d_model)
-    return p
-
-
-def _attn(gen, cfg: ModelConfig) -> Dict[str, Any]:
-    d, hd = cfg.d_model, cfg.resolved_head_dim
-    h, k = cfg.n_heads, cfg.n_kv_heads
-    attn = {"wq": _dense(gen, d, h * hd), "wk": _dense(gen, d, k * hd),
-            "wv": _dense(gen, d, k * hd),
-            "wo": _dense(gen, h * hd, d, scale=1.0 / (h * hd) ** 0.5)}
-    if cfg.qkv_bias:
-        attn.update(bq=torch.zeros(h * hd), bk=torch.zeros(k * hd),
-                    bv=torch.zeros(k * hd))
-    return attn
+def _norm_init(cfg: ModelConfig, device):
+    """A layer's norm: LayerNorm for the whisper family (GELU), else
+    RMSNorm, as the reference picks them."""
+    init = layers.layernorm_init if cfg.act == "gelu" else layers.rmsnorm_init
+    return init(cfg.d_model, device=device)
 
 
 def _attn_layer(gen, cfg: ModelConfig, *,
                 cross: bool = False) -> Dict[str, Any]:
     """Self-attention plus FFN; ``cross`` adds a decoder layer's
     cross-attention ``xattn`` (its own wq, wk, wv, wo) and its ``norm_x``."""
-    d, attn = cfg.d_model, _attn(gen, cfg)
-    f = cfg.d_ff
-    if _is_moe_layer(cfg):
-        ffn = moe.moe_init(gen, cfg)
-    elif cfg.act == "silu":
-        ffn = {"w_gate": _dense(gen, d, f), "w_up": _dense(gen, d, f),
-               "w_down": _dense(gen, f, d)}
-    else:
-        ffn = {"w_up": _dense(gen, d, f), "b_up": torch.zeros(f),
-               "w_down": _dense(gen, f, d), "b_down": torch.zeros(d)}
-    p = {"norm1": _norm(cfg), "attn": attn, "norm2": _norm(cfg),
-         "ffn": ffn}
+    dev = gen.device
+    attn = attention.attn_init(gen, cfg)
+    ffn = (moe.moe_init(gen, cfg) if _is_moe_layer(cfg)
+           else mlp.mlp_init(gen, cfg))
+    p = {"norm1": _norm_init(cfg, dev), "attn": attn,
+         "norm2": _norm_init(cfg, dev), "ffn": ffn}
     if cross:
-        p.update(norm_x=_norm(cfg), xattn=_attn(gen, cfg))
+        p.update(norm_x=_norm_init(cfg, dev),
+                 xattn=attention.attn_init(gen, cfg))
     return p
 
 
@@ -128,7 +100,8 @@ def _stack(trees):
 
 
 def _mamba_layer(gen, cfg: ModelConfig) -> Dict[str, Any]:
-    return {"norm": _norm(cfg), "mamba": ssm.mamba_init(gen, cfg)}
+    return {"norm": layers.rmsnorm_init(cfg.d_model, device=gen.device),
+            "mamba": ssm.mamba_init(gen, cfg)}
 
 
 def init_params(cfg: ModelConfig, *, generator: torch.Generator,
@@ -147,12 +120,13 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator,
         return ssm.cast(tree, device, dtype)
 
     p: Dict[str, Any] = {
-        "embed": {"table": cast(_normal(
-            generator, (cfg.padded_vocab, cfg.d_model), 0.02))},
-        "final_norm": cast(_norm(cfg)),
+        "embed": cast(layers.embed_init(generator, cfg.padded_vocab,
+                                        cfg.d_model)),
+        "final_norm": cast(_norm_init(cfg, generator.device)),
     }
     if not cfg.tie_embeddings:
-        p["lm_head"] = cast(_dense(generator, cfg.d_model, cfg.padded_vocab))
+        p["lm_head"] = cast(layers.dense_init(generator, cfg.d_model,
+                                              cfg.padded_vocab))
     if not _uniform(cfg):
         nc = _n_cycles(cfg)
         slots = []
@@ -177,8 +151,8 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator,
                for _ in range(cfg.n_encoder_layers)]
         p["encoder"] = {
             "layers": _stack(enc),
-            "final_norm": cast({"scale": torch.ones(cfg.d_model),
-                                "bias": torch.zeros(cfg.d_model)})}
+            "final_norm": cast(layers.layernorm_init(
+                cfg.d_model, device=generator.device))}
     return p
 
 

@@ -2,7 +2,9 @@
 
 Exports what the reference's package does, less its JAX retrace guard
 (``TRACE_COUNTS``: eager PyTorch does not trace).  The tensor-parallel
-twins (``serve/tp.py``) and the prefill/decode hand-off
+twins (``serve/tp.py``, with the front end that lets a ``ServingGateway``
+drive a tensor-parallel engine: its backfill decided on model-rank 0 and
+replayed on the other ranks) and the prefill/decode hand-off
 (``serve/disaggregated.py``) are imported from their modules, as in the
 reference."""
 from repro_torch.serve.engine import Request, ServingEngine

@@ -55,10 +55,13 @@ Hot-path invariants, as in the reference:
     collective is issued from the engine's calling thread, in program
     order.  The pager and migration gather every head over the group, so
     the host copy and the wire format are shard-agnostic (a TP tenant
-    migrates to a single-device shell).  An ``admission_hook`` (the
-    gateway's backfill, which reads each rank's own clock) is refused on a
-    TP engine: a rank-consistent front end belongs to the mesh-bound
-    launchers (ROADMAP item 21).
+    migrates to a single-device shell).  A gateway's ``admission_hook``
+    (its backfill, which reads the rank's own clock) runs on model-rank 0
+    alone, and the other ranks replay its outcome from one broadcast
+    before ``_admit`` (:meth:`~repro_torch.serve.tp.TPContext.backfill`;
+    when rank 0's backfill raises, every rank raises after the broadcast);
+    any other hook runs on every rank and must decide from replicated
+    state.
 """
 from __future__ import annotations
 
@@ -564,14 +567,13 @@ class ServingEngine:
                 health.beat(self.slot)      # watchdog: slot is decoding
         self._settle_io()
         if self.admission_hook is not None:
-            if self.tp is not None:
-                raise NotImplementedError(
-                    "an admission_hook (the gateway) on a tensor-parallel "
-                    "engine: its clock-driven decisions would differ "
-                    "between ranks; a front end that takes them on "
-                    "model-rank 0 belongs to the mesh-bound launchers "
-                    "(ROADMAP queue 1 item 21)")
-            self.admission_hook(self)
+            gateway = (self.tp.gateway_of(self.admission_hook)
+                       if self.tp is not None else None)
+            if gateway is not None:
+                # clock-driven: decided on model-rank 0, replayed here
+                self.tp.backfill(self, gateway)
+            else:
+                self.admission_hook(self)
         self._admit()
         self._prefill_chunks()
         # decode runs over BOUND rows only: chunk-prefilling rows hold a

@@ -35,22 +35,55 @@ non-MoE SwiGLU with divisible ``d_ff``.  A part that cannot shard is
 replicated and its reduction hook is ``None`` — never applied to an
 already-complete sum.
 
+**The gateway's front end.**  A :class:`~repro_torch.serve.gateway.
+ServingGateway`'s admission hook (its ``_backfill``) reads the rank's own
+clock to expire queued requests, age their priorities and order them by
+slack, so the ranks would decide differently and deadlock.
+:meth:`TPContext.backfill` runs it on model-rank 0 alone and broadcasts
+the outcome over the ``model`` group as one ``(Q, 3)`` int32 tensor, a
+row ``(gid, disposition, effective priority)`` for each of the ``Q``
+queued requests: the expired ones in queue order, the dispatched ones in
+the order rank 0 submitted them, then the rest of the queue in rank 0's
+new order.  The other ranks replay it on their own gateways (the same
+typed ``SLO_EXPIRED`` refusals, ``engine.submit`` calls and queue) and
+never call the hook.  Should rank 0's backfill raise, the broadcast still
+goes out, so that no rank waits on it: a raising ``engine.submit`` (a
+prompt token out of the vocabulary, a quarantined tenant) is marked on
+its row, and the other ranks leave their gateways as rank 0's was left
+and make the same call, which raises the same typed error; anything else
+marks every row, and the other ranks raise a ``RuntimeError``.  The rest
+of the gateway is rank-consistent as it stands: ``submit``'s SLO check
+compares a service estimate from the EWMAs, which are rank 0's, with a
+relative deadline, and the queue bound and the engine's occupancy are
+replicated host state.  Any other
+admission hook runs on every rank, so it must decide from replicated
+state alone.
+
 Every collective is issued from the engine's calling thread, in program
 order, on every rank of the group.
 """
 from __future__ import annotations
 
 import functools
+import math
 from dataclasses import replace
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.faults import FaultKind
+from repro_torch.core.port import PortError
 from repro_torch.core.services.collectives import CollectiveService
 from repro_torch.models.sharding import MeshRules, P, local_shard
 from repro_torch.serve import paged_model
+from repro_torch.serve.gateway import ServingGateway
+
+# a queued gateway request's disposition in the front end's outcome; the
+# last two only when model-rank 0's backfill raised
+EXPIRED, DISPATCHED, QUEUED, FAILED, RAISED = 0, 1, 2, 3, -1
 
 
 def tp_plan(cfg: ModelConfig, tp_size: int) -> Dict[str, bool]:
@@ -183,6 +216,42 @@ class TPContext:
         """Model-rank 0's ``x`` on every rank of the group (in place)."""
         return self.collectives.broadcast(x, self.mesh, self.axis, src=0)
 
+    # ------------------------------------------------ the gateway's hook ----
+    @staticmethod
+    def gateway_of(hook) -> Optional[ServingGateway]:
+        """The gateway whose backfill ``hook`` is, else None."""
+        gw = getattr(hook, "__self__", None)
+        if isinstance(gw, ServingGateway) and hook.__name__ == "_backfill":
+            return gw
+        return None
+
+    def backfill(self, engine, gateway: ServingGateway) -> None:
+        """The gateway's admission hook, decided on model-rank 0 and
+        replayed on the other ranks (module docstring).  One broadcast of
+        ``(Q, 3)`` int32; none when the queue, whose length every rank
+        sees, is empty.  When rank 0's backfill raises, the broadcast
+        still goes out and every rank raises after it."""
+        q = len(gateway.queue)
+        if q == 0:
+            return
+        if len({p.stream.gid for p in gateway.queue}) != q:
+            # streams adopted from another gateway may repeat a gid; every
+            # rank sees it, so all refuse before the broadcast
+            raise RuntimeError("the gateway's queue repeats a gid, which "
+                               "the ranks cannot agree on")
+        error = None
+        if self.rank == 0:
+            rows, error = _backfill_outcome(engine, gateway)
+            buf = torch.from_numpy(rows).to(engine.device)
+        else:
+            buf = torch.empty((q, 3), dtype=torch.int32,
+                              device=engine.device)
+        self.broadcast_from_rank0(buf)
+        if error is not None:
+            raise error
+        if self.rank != 0:
+            _replay_backfill(engine, gateway, buf.cpu().numpy())
+
     def allreduce_bytes_per_step(self, batch: int) -> int:
         """Modeled GLOBAL payload bytes all-reduced per decode step: one
         fp32 (B, 1, d_model) activation per enabled reduction site per
@@ -190,3 +259,130 @@ class TPContext:
         per-rank wire estimate."""
         sites = int(self.shard_heads) + int(self.shard_mlp)
         return sites * self.cfg.n_layers * batch * self.cfg.d_model * 4
+
+
+class _SubmitWatch:
+    """The engine as the gateway's backfill sees it on model-rank 0,
+    noting whether one of its ``submit`` calls raised."""
+
+    def __init__(self, engine):
+        self._engine = engine
+        self.raised = False
+
+    def __getattr__(self, name):
+        return getattr(self._engine, name)
+
+    def submit(self, *args, **kwargs):
+        try:
+            return self._engine.submit(*args, **kwargs)
+        except Exception:
+            self.raised = True
+            raise
+
+
+def _backfill_outcome(engine, gw: ServingGateway):
+    """Run ``gw``'s backfill and encode what it did to its queue as
+    ``(gid, disposition, eff_priority)`` rows: expired in queue order,
+    dispatched in submit order (the engine's rids rise), then the queue
+    that is left, in its new order.  Returns the rows and the exception
+    the backfill raised, or None.
+
+    When an ``engine.submit`` raised (a prompt token out of the
+    vocabulary, a quarantined tenant), its request's row is ``FAILED``
+    and comes first in the queue that is left: the backfill stopped
+    there, with the dispatched requests still at the front of its queue.
+    When anything else raised, or the rows do not account for the queue,
+    every row is ``RAISED``."""
+    queued = list(gw.queue)
+    rid_before = {p.stream.gid: p.stream.rid for p in queued}
+    n_rejected = len(gw.rejected)
+    watch = _SubmitWatch(engine)
+    error = None
+    try:
+        gw._backfill(watch)
+    except Exception as e:
+        error = e
+    expired = gw.rejected[n_rejected:]
+    dispatched = sorted((p.stream for p in queued
+                         if p.stream.rid != rid_before[p.stream.gid]),
+                        key=lambda s: s.rid)
+    sent = {s.gid for s in dispatched}
+    left = [p.stream for p in gw.queue if p.stream.gid not in sent]
+    rows = ([(s.gid, EXPIRED, s.eff_priority) for s in expired]
+            + [(s.gid, DISPATCHED, s.eff_priority) for s in dispatched]
+            + [(s.gid, QUEUED, s.eff_priority) for s in left])
+    whole = len(rows) == len(queued)
+    if error is not None and watch.raised and left and whole:
+        rows[len(expired) + len(dispatched)] = (left[0].gid, FAILED,
+                                                left[0].eff_priority)
+    elif error is not None or not whole:
+        if error is None:
+            error = RuntimeError(
+                f"the gateway's backfill accounted for {len(rows)} of the "
+                f"{len(queued)} requests it found queued")
+        rows = [(-1, RAISED, 0)] * len(queued)
+    return np.asarray(rows, np.int32).reshape(-1, 3), error
+
+
+def _submit(engine, p) -> int:
+    """``engine.submit`` of the queued ``p`` with the arguments that the
+    dispatch loop of ``gateway.py::_backfill`` passes."""
+    return engine.submit(
+        p.prompt, p.stream.max_new_tokens,
+        temperature=p.temperature, top_k=p.top_k, top_p=p.top_p,
+        tid=p.stream.tid, priority=p.stream.eff_priority,
+        deadline_s=(None if math.isinf(p.stream.deadline)
+                    else p.stream.deadline))
+
+
+def _replay_backfill(engine, gw: ServingGateway, rows: np.ndarray) -> None:
+    """Apply model-rank 0's backfill outcome to this rank's gateway: the
+    refusals, counters, ``engine.submit`` calls and queue order
+    ``ServingGateway._backfill`` would have produced on rank 0's clock.
+
+    Mirrors ``gateway.py::_backfill`` (lines 240-294, the same text as
+    the reference's ``src/repro/serve/gateway.py``): an expired row is
+    its expiry branch (the ``PortError``, ``expired`` and ``rejected``),
+    a dispatched row its dispatch loop (``engine.submit``, ``stream.rid``,
+    ``streams`` and ``dispatched``), and the queue is what its sort and
+    ``del self.queue[:n]`` leave.  A ``FAILED`` row is rank 0's raising
+    submit: this rank leaves its queue as rank 0's was left and makes the
+    same call, which raises the same error from the same replicated
+    state."""
+    if len(rows) and rows[0, 1] == RAISED:
+        raise RuntimeError("model-rank 0's gateway backfill raised "
+                           "(its error is raised on model-rank 0)")
+    by_gid = {p.stream.gid: p for p in gw.queue}
+    sent, queue, failed = [], [], None
+    for gid, disposition, eff_priority in rows.tolist():
+        if gid not in by_gid:
+            raise RuntimeError(
+                f"model-rank 0's gateway queue holds gid {gid}, this "
+                "rank's does not: the ranks' gateway submits differ")
+        p = by_gid[gid]
+        stream = p.stream
+        stream.eff_priority = eff_priority
+        if disposition == EXPIRED:
+            gw.expired += 1
+            stream.error = PortError(
+                "deadline expired while queued",
+                kind=FaultKind.SLO_EXPIRED, slot=engine.slot,
+                tenant=engine.tenant, retryable=False)
+            gw.rejected.append(stream)
+        elif disposition == DISPATCHED:
+            stream.rid = _submit(engine, p)
+            gw.streams[stream.rid] = stream
+            gw.dispatched += 1
+            sent.append(p)
+        else:
+            if disposition == FAILED:
+                failed = p
+            queue.append(p)
+    if failed is None:
+        gw.queue = queue
+        return
+    gw.queue = sent + queue
+    _submit(engine, failed)
+    raise RuntimeError(
+        "model-rank 0's gateway failed to submit a request that this "
+        "rank's engine accepted: the ranks' engines differ")

@@ -13,6 +13,7 @@ import dataclasses
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.core.faults import FaultKind
 from repro_torch.core.services.collectives import (CollectiveConfig,
                                                    CollectiveService)
 from repro_torch.core.services.mmu import MMU, MMUConfig
@@ -20,6 +21,7 @@ from repro_torch.launch.mesh import make_host_mesh, make_mesh
 from repro_torch.models import attention
 from repro_torch.models.params import from_reference
 from repro_torch.serve.engine import ServingEngine
+from repro_torch.serve.gateway import ServingGateway
 
 
 def _cfg(overrides):
@@ -58,16 +60,12 @@ def serve(rank, world, device, np_params, cfg_kw, reqs, eng_kw, mmu_kw):
     for prompt, kw in reqs:
         eng.submit(prompt, **kw)
     stats = eng.run()
-    # a front end reading each rank's clock is refused, before any
-    # collective of the step
-    eng.admission_hook = lambda engine: None
-    try:
-        eng.step()
-        hook_refused = False
-    except NotImplementedError:
-        hook_refused = True
+    # a plain admission hook (not a gateway's) runs on every rank
+    hook_calls = []
+    eng.admission_hook = hook_calls.append
+    eng.step()
     return {"tokens": _tokens(eng), "agree": _streams_agree(_tokens(eng)),
-            "hook_refused": hook_refused,
+            "hook_ran": hook_calls == [eng],
             "plan": {"shard_heads": eng.tp.shard_heads,
                      "shard_mlp": eng.tp.shard_mlp},
             "pool_shape": tuple(eng.pools["k"].shape),
@@ -314,3 +312,130 @@ def handoff_needs_pods(rank, world, device):
     except ValueError as e:
         return str(e)
     return None
+
+
+# ------------------------------------------------------------ the gateway --
+def drive_gateway(gw, arrivals):
+    """Submit each ``(step, prompt, kw)`` arrival once the gateway has
+    taken ``step`` steps and step until every request is served; returns
+    the completed streams' tokens by gid.  Shared by the ranks and the
+    single-process gateways they are compared with (either package's)."""
+    arrivals = sorted(arrivals, key=lambda a: a[0])
+    steps, i = 0, 0
+    while i < len(arrivals) or gw.pending():
+        while i < len(arrivals) and arrivals[i][0] <= steps:
+            gw.submit(arrivals[i][1], **arrivals[i][2])
+            i += 1
+        gw.step()
+        steps += 1
+    return {s.gid: list(s.tokens) for s in gw.completed}
+
+
+class _AheadClock:
+    """A stand-in for ``gateway.time`` whose clock reads ``ahead_s``
+    seconds later than the process's."""
+
+    def __init__(self, ahead_s):
+        import time
+        self._time, self.ahead_s = time, ahead_s
+
+    def perf_counter(self):
+        return self._time.perf_counter() + self.ahead_s
+
+
+def _gateway_outcome(gw):
+    streams = list(gw.completed) + list(gw.streams.values())
+    return {"tokens": {s.gid: list(s.tokens) for s in gw.completed},
+            "expired": [s.gid for s in gw.rejected
+                        if s.error.kind == FaultKind.SLO_EXPIRED],
+            "rejected_kinds": [s.error.kind for s in gw.rejected],
+            "dispatch_order": [s.gid for s in sorted(
+                (s for s in streams if s.rid is not None),
+                key=lambda s: s.rid)],
+            "dispatched": gw.dispatched, "expired_count": gw.expired}
+
+
+def serve_deadlined(gw, deadlined, ahead_s):
+    """Submit every ``(prompt, kw)`` of ``deadlined`` at once, then serve
+    them with ``gateway.time`` reading ``ahead_s`` seconds ahead; returns
+    the gateway's outcome."""
+    from repro_torch.serve import gateway as gateway_module
+    for prompt, kw in deadlined:
+        gw.submit(prompt, **kw)
+    real = gateway_module.time
+    gateway_module.time = _AheadClock(ahead_s)
+    try:
+        gw.drain()
+    finally:
+        gateway_module.time = real
+    return _gateway_outcome(gw)
+
+
+def submit_bad_prompt(gw):
+    """Two requests through ``gw``, the second with a token outside the
+    vocabulary, and one step, whose dispatch of the second raises;
+    returns the error and what the gateway and engine are left with."""
+    gw.submit(list(range(3, 9)), max_new_tokens=4)
+    gw.submit([3, gw.engine.cfg.vocab_size + 5], max_new_tokens=4)
+    error = None
+    try:
+        gw.step()
+    except Exception as e:
+        error = (type(e).__name__, str(e))
+    return {"error": error, "queue": [p.stream.gid for p in gw.queue],
+            "streams": sorted(gw.streams), "dispatched": gw.dispatched,
+            "engine_queue": [(r.rid, r.prompt) for r in gw.engine.queue]}
+
+
+def serve_with_plain_hook(eng):
+    """Serve one request on ``eng`` under a hook that is no gateway's and
+    submits a second request, from replicated state, at its third call;
+    returns the hook's calls, the steps and the streams."""
+    calls = []
+
+    def hook(e):
+        calls.append(e.steps)
+        if len(calls) == 3:
+            e.submit(list(range(4, 12)), max_new_tokens=6)
+
+    eng.admission_hook = hook
+    eng.submit(list(range(3, 9)), max_new_tokens=6)
+    steps = 0
+    while eng.pending():
+        eng.step()
+        steps += 1
+    return {"calls": len(calls), "steps": steps, "tokens": _tokens(eng)}
+
+
+def gateway(rank, world, device, np_params, arrivals, deadlined, eng_kw,
+            mmu_kw, ahead_s):
+    """Every gateway scenario on one TP engine per scenario (data 1, model
+    ``world``), so the ranks start once.
+
+    ``parity``: ``arrivals`` through ``ServingGateway(admission="slo")``.
+    ``rank1_ahead`` / ``rank0_ahead``: ``serve_deadlined`` with that
+    rank's gateway clock ``ahead_s`` ahead.  ``bad_prompt``:
+    ``submit_bad_prompt``, after which the ranks go on in step.
+    ``plain_hook``: ``serve_with_plain_hook``.  Returns each scenario's
+    outcome."""
+    cfg = _cfg({})
+    params = from_reference(np_params, device=device)
+    mesh = make_host_mesh(1, world, device=device.type)
+
+    def engine():
+        return ServingEngine(cfg, params, MMU(MMUConfig(**mmu_kw)),
+                             mesh=mesh, device=device, **eng_kw)
+
+    out = {}
+    gw = ServingGateway(engine(), admission="slo")
+    drive_gateway(gw, arrivals)
+    out["parity"] = _gateway_outcome(gw)
+    for name, ahead_rank in (("rank1_ahead", 1), ("rank0_ahead", 0)):
+        out[name] = serve_deadlined(
+            ServingGateway(engine(), admission="slo"), deadlined,
+            ahead_s if rank == ahead_rank else 0.0)
+    out["bad_prompt"] = submit_bad_prompt(
+        ServingGateway(engine(), admission="slo"))
+    out["plain_hook"] = serve_with_plain_hook(engine())
+    out["agree"] = _streams_agree(out)
+    return out

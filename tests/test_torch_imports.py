@@ -1,6 +1,7 @@
-"""The port stands alone: every ``repro_torch`` module and ``chip_smoke``
-import with ``jax`` and ``repro`` blocked, and no source of the port
-names either in an import statement."""
+"""The port stands alone: every ``repro_torch`` module, ``chip_smoke``
+and the examples on the port (``examples_torch/``) import with ``jax``
+and ``repro`` blocked, and no source of the port names either in an
+import statement."""
 import ast
 import json
 import os
@@ -13,7 +14,8 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+EXAMPLES = sorted((ROOT / "examples_torch").glob("*.py"))
+SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + EXAMPLES
 
 _CHILD = r"""
 import importlib, importlib.abc, pkgutil, sys
@@ -32,6 +34,10 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
 for n in names:
     importlib.import_module(n)
 import chip_smoke
+import importlib.util, pathlib
+for path in sorted(pathlib.Path("examples_torch").glob("*.py")):
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 assert not any(m.split(".")[0] in ("jax", "repro") for m in sys.modules)
 print(len(names))
 """
