@@ -59,6 +59,7 @@ from repro_torch.models.sharding import (MeshRules, NamedSharding, P,
                                          flatten_specs, local_shard, reshard)
 from repro_torch.optim import adamw
 from repro_torch.serve.tp import tp_plan
+from repro_torch.telemetry import spans
 
 
 @dataclass
@@ -227,7 +228,10 @@ def make_train_bundle(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
     micro-steps of the rank's rows (memory lever); ``compression`` is an
     optional GradCompression service whose error-feedback state rides in
     opt_state["ef"].  ``attention_impl`` is kept for the reference's
-    keywords: the device picks the attention path."""
+    keywords: the device picks the attention path.  The step records the
+    Trainer's ``train.step`` span, with ``train.forward`` and
+    ``train.backward`` for each micro-step and ``train.optimizer``
+    (``repro_torch.telemetry.spans``)."""
     rules = MeshRules.from_mesh(mesh, scheme=param_scheme)
     opt_cfg = opt_cfg or adamw.AdamWConfig()
     svc = collectives if collectives is not None else CollectiveService()
@@ -266,10 +270,13 @@ def make_train_bundle(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
                           and n_batch > 1 else None)
 
     def loss_grads(comp, leaves, mb):
-        loss, m = T.loss_fn(comp, lay.cfg, mb, remat=remat, rules=rules,
-                            compute_dtype=compute_dtype,
-                            fused_attention=fused, sharded=sharded)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        dev = leaves[0].device
+        with spans.span("train.forward", device=dev):
+            loss, m = T.loss_fn(comp, lay.cfg, mb, remat=remat, rules=rules,
+                                compute_dtype=compute_dtype,
+                                fused_attention=fused, sharded=sharded)
+        with spans.span("train.backward", device=dev):
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(x) if g is None else g
                  for g, x in zip(grads, leaves)]
         return grads, torch.stack([m["loss"].detach().float(),
@@ -277,6 +284,10 @@ def make_train_bundle(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
                                    m["tokens"].detach().float()])
 
     def train_step(params, opt_state, batch):
+        with spans.span("train.step"):
+            return _train_step(params, opt_state, batch)
+
+    def _train_step(params, opt_state, batch):
         comp = {}
         for k, p in adamw.flatten(params).items():
             x = p.detach()
@@ -317,21 +328,22 @@ def make_train_bundle(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
             msum = msum * torch.tensor([1 / n_batch, 1 / n_batch, 1.0],
                                        device=msum.device)
         grads = adamw.unflatten(full)
-        opt_state = dict(opt_state)
-        new_ef = None
-        if compression is not None:
-            ef = opt_state.pop("ef", None)
-            if ef is not None:
-                ef = _reshard_tree(ef, pspec, adamw.unflatten(
-                    {k: P() for k in fps}), lay)
-            grads, new_ef, _ = compression.apply(grads, ef)
-        gnorm = adamw.global_norm(grads)
-        shards = _cut_tree(grads, pspec, mesh)
-        del grads, full
-        params, opt_state, om = adamw.update(shards, opt_state, params,
-                                             opt_cfg, grad_norm=gnorm)
-        if new_ef is not None:
-            opt_state["ef"] = _cut_tree(new_ef, pspec, mesh)
+        with spans.span("train.optimizer", device=msum.device):
+            opt_state = dict(opt_state)
+            new_ef = None
+            if compression is not None:
+                ef = opt_state.pop("ef", None)
+                if ef is not None:
+                    ef = _reshard_tree(ef, pspec, adamw.unflatten(
+                        {k: P() for k in fps}), lay)
+                grads, new_ef, _ = compression.apply(grads, ef)
+            gnorm = adamw.global_norm(grads)
+            shards = _cut_tree(grads, pspec, mesh)
+            del grads, full
+            params, opt_state, om = adamw.update(shards, opt_state, params,
+                                                 opt_cfg, grad_norm=gnorm)
+            if new_ef is not None:
+                opt_state["ef"] = _cut_tree(new_ef, pspec, mesh)
         metrics = {"loss": msum[0], "aux_loss": msum[1], "tokens": msum[2]}
         metrics.update(om)
         return params, opt_state, metrics

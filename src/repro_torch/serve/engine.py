@@ -43,6 +43,14 @@ Hot-path invariants, as in the reference:
     reference container's JAX PRNG key is ignored (greedy streams carry
     over between the two packages).
 
+  * **Spans.**  While :mod:`repro_torch.telemetry.spans` records, each
+    step records ``engine.step`` and its ``engine.admit``,
+    ``engine.prefill_chunks``, ``engine.prefill_batch``, ``engine.decode``
+    (attribute ``rows``), ``engine.bookkeeping`` and ``engine.wait`` (every
+    point where the host blocks on the device) spans.  They reuse the clock
+    readings behind ``decode_step_times``, ``prefill_s`` and the EWMAs;
+    off, each costs one check.
+
   * **Tensor parallel.**  A ``mesh`` (a ``DeviceMesh``) whose ``model``
     dim is larger than one builds a :class:`~repro_torch.serve.tp.
     TPContext`: this rank's weight shards, pools of its KV heads, and a
@@ -86,6 +94,7 @@ from repro_torch.serve.paged_model import (decode_step_paged,
                                            prefill_chunk_paged,
                                            prefill_shared_paged,
                                            scatter_kv_pages)
+from repro_torch.telemetry import spans
 
 
 @dataclass
@@ -240,13 +249,15 @@ class ServingEngine:
         (n + 1,) int32 vector whose last entry holds the float32 bits of
         rank 0's time.  Returns (host tokens, rank 0's seconds, the device
         tokens).  Every rank then advances its host state, and its
-        EWMAs, from the same values."""
-        self._sync()
-        dt = np.asarray([time.perf_counter() - t0], np.float32)
-        buf = torch.cat([toks.to(torch.int32).reshape(-1),
-                         torch.from_numpy(dt.view(np.int32)).to(self.device)])
-        self.tp.broadcast_from_rank0(buf)
-        host = buf.cpu().numpy()
+        EWMAs, from the same values.  It blocks: an ``engine.wait`` span."""
+        with spans.span("engine.wait"):
+            self._sync()
+            dt = np.asarray([time.perf_counter() - t0], np.float32)
+            buf = torch.cat([toks.to(torch.int32).reshape(-1),
+                             torch.from_numpy(dt.view(np.int32)).to(
+                                 self.device)])
+            self.tp.broadcast_from_rank0(buf)
+            host = buf.cpu().numpy()
         return host[:-1], float(host[-1:].view(np.float32)[0]), buf[:-1]
 
     def gather_kv(self, flat) -> Dict[str, torch.Tensor]:
@@ -423,12 +434,17 @@ class ServingEngine:
                 tokens[j] = req.prompt[req.prefill_pos:
                                        req.prefill_pos + chunk]
             i32 = torch.int32
-            self._prefill_chunk(
-                self.params, self.pools, self._tensor(tokens, i32),
-                self._tensor(q_lens, i32), self._tensor(q_starts, i32),
-                self._tensor(tables, i32))
-            self._sync()
-            dt = time.perf_counter() - t0
+            with spans.span("engine.prefill_chunks", t0) as sp:
+                self._prefill_chunk(
+                    self.params, self.pools, self._tensor(tokens, i32),
+                    self._tensor(q_lens, i32), self._tensor(q_starts, i32),
+                    self._tensor(tables, i32))
+                with spans.span("engine.wait") as wait:
+                    self._sync()
+                    t1 = time.perf_counter()
+                    wait.close(t1)
+                sp.close(t1)
+            dt = t1 - t0
             self.prefill_s += dt
             self.prefill_computed += n * chunk
             if self.tp is not None:
@@ -463,6 +479,47 @@ class ServingEngine:
         One function for shared, unshared and chunked rows keeps their
         token streams identical."""
         t0 = time.perf_counter()
+        with spans.span("engine.prefill_batch", t0) as sp:
+            first, now, sample, q_lens = self._prefill_forward(rows, t0)
+            sp.close(now)
+        self.prefill_s += now - t0
+        for _, req, _, wfrom in rows:
+            self.mmu.mark_dirty_range(req.rid, wfrom, len(req.prompt))
+        self.ewma_prefill_s_per_tok = self._ewma(
+            self.ewma_prefill_s_per_tok,
+            sample / max(int(q_lens.sum()), 1))
+        self.prefill_obs += 1
+        slots_i, srows = [], []
+        for j, (i, req, _, _) in enumerate(rows):
+            tok = int(first[j])
+            req.out_tokens.append(tok)
+            req.t_first_token = now
+            self.mmu.extend_seq(req.rid, 1, slot=i)
+            self.tokens_out += 1
+            if len(req.prompt) + 1 >= self.max_len:
+                # no decode budget left: complete straight from prefill
+                req.done = True
+                req.t_done = now
+                self.mmu.free_seq(req.rid)
+                self.block_table.unbind(i)
+                self.completed.append(req)
+                self.slots[i] = None
+                if self.token_sink is not None:
+                    self.token_sink(req, tok, True)
+                continue
+            if self.token_sink is not None:
+                self.token_sink(req, tok, False)
+            slots_i.append(i)
+            # write position of the NEXT decode step's token
+            srows.append((len(req.prompt), tok, req.temperature,
+                          req.top_k, req.top_p, req.rid))
+        if slots_i:
+            self._sync_slot_state(slots_i, srows)
+
+    def _prefill_forward(self, rows, t0: float):
+        """The padded forward of :meth:`_prefill_batch` and the read-back
+        of its first tokens: (the first tokens on the host, the clock
+        reading after them, the EWMA sample, the rows' query lengths)."""
         n = len(rows)
         nb = _bucket(n, self.max_batch)
         smax = max(len(r.prompt) for _, r, _, _ in rows)
@@ -498,46 +555,16 @@ class ServingEngine:
             self._tensor(topps, f32), self._tensor(seq_ids, i32),
             filters_on=bool((topks > 0).any() or (topps < 1.0).any()))
         if self.tp is None:
-            first = first.cpu().numpy()
-            now = time.perf_counter()
+            with spans.span("engine.wait") as wait:
+                first = first.cpu().numpy()
+                now = time.perf_counter()
+                wait.close(now)
             sample = now - t0
         else:
             # every rank takes model-rank 0's first tokens and time
             first, sample, _ = self._tp_agree(first, t0)
             now = time.perf_counter()
-        self.prefill_s += now - t0
-        for _, req, _, wfrom in rows:
-            self.mmu.mark_dirty_range(req.rid, wfrom, len(req.prompt))
-        self.ewma_prefill_s_per_tok = self._ewma(
-            self.ewma_prefill_s_per_tok,
-            sample / max(int(q_lens.sum()), 1))
-        self.prefill_obs += 1
-        slots_i, srows = [], []
-        for j, (i, req, _, _) in enumerate(rows):
-            tok = int(first[j])
-            req.out_tokens.append(tok)
-            req.t_first_token = now
-            self.mmu.extend_seq(req.rid, 1, slot=i)
-            self.tokens_out += 1
-            if len(req.prompt) + 1 >= self.max_len:
-                # no decode budget left: complete straight from prefill
-                req.done = True
-                req.t_done = now
-                self.mmu.free_seq(req.rid)
-                self.block_table.unbind(i)
-                self.completed.append(req)
-                self.slots[i] = None
-                if self.token_sink is not None:
-                    self.token_sink(req, tok, True)
-                continue
-            if self.token_sink is not None:
-                self.token_sink(req, tok, False)
-            slots_i.append(i)
-            # write position of the NEXT decode step's token
-            srows.append((len(req.prompt), tok, req.temperature,
-                          req.top_k, req.top_p, req.rid))
-        if slots_i:
-            self._sync_slot_state(slots_i, srows)
+        return first, now, sample, q_lens
 
     def _sync_slot_state(self, slots_i, rows) -> None:
         """Push slot-transition deltas into the device-resident state
@@ -561,6 +588,10 @@ class ServingEngine:
     # ------------------------------------------------------------ decode ----
     def step(self) -> int:
         """One continuous-batching engine step; returns tokens emitted."""
+        with spans.span("engine.step"):
+            return self._step()
+
+    def _step(self) -> int:
         if self.shell is not None:
             health = getattr(self.shell, "health", None)
             if health is not None:
@@ -574,7 +605,8 @@ class ServingEngine:
                 self.tp.backfill(self, gateway)
             else:
                 self.admission_hook(self)
-        self._admit()
+        with spans.span("engine.admit"):
+            self._admit()
         self._prefill_chunks()
         # decode runs over BOUND rows only: chunk-prefilling rows hold a
         # slot + pages but emit nothing until their final chunk lands
@@ -583,6 +615,47 @@ class ServingEngine:
         if not live:
             return 0
         t0 = time.perf_counter()
+        with spans.span("engine.decode", t0, rows=len(live)) as sp:
+            toks, t1, sample = self._decode(t0)
+            sp.close(t1)
+        dt = t1 - t0
+        self.decode_step_times.append(dt)
+        self.ewma_decode_step_s = self._ewma(self.ewma_decode_step_s,
+                                             sample)
+        self.decode_obs += 1
+        self.steps += 1
+        with spans.span("engine.bookkeeping", t1):
+            self._submit_step_io(n_live=len(live))
+            emitted = 0
+            freed = []
+            for i in live:
+                req = self.slots[i]
+                tok = int(toks[i])
+                req.out_tokens.append(tok)
+                emitted += 1
+                self.mmu.extend_seq(req.rid, 1, slot=i)
+                total = len(req.prompt) + len(req.out_tokens)
+                if (len(req.out_tokens) >= req.max_new_tokens
+                        or total >= self.max_len):
+                    req.done = True
+                    req.t_done = time.perf_counter()
+                    self.mmu.free_seq(req.rid)
+                    self.block_table.unbind(i)
+                    self.completed.append(req)
+                    self.slots[i] = None
+                    freed.append(i)
+                if self.token_sink is not None:
+                    self.token_sink(req, tok, req.done)
+            if freed:
+                self._sync_slot_state(freed,
+                                      [(0, 0, 0.0, 0, 1.0, 0)] * len(freed))
+            self.tokens_out += emitted
+        return emitted
+
+    def _decode(self, t0: float):
+        """One decode step over the bound rows and the read-back of its
+        tokens: (host tokens, the clock reading after them, the EWMA
+        sample: model-rank 0's seconds under TP)."""
         tables = self.block_table.device_view()
         # rows whose mapping changed (page crossing, eviction, fault-back)
         # re-sync lens/tokens from host truth
@@ -608,43 +681,14 @@ class ServingEngine:
         if self.tp is None:
             self.dev_tokens = next_toks
             # the ONLY per-step device->host copy: the (B,) int32 tokens
-            toks = next_toks.cpu().numpy()
-            dt = sample = time.perf_counter() - t0
-        else:
-            # model-rank 0's tokens and step time, broadcast over the group
-            toks, sample, self.dev_tokens = self._tp_agree(next_toks, t0)
-            dt = time.perf_counter() - t0
-        self.decode_step_times.append(dt)
-        self.ewma_decode_step_s = self._ewma(self.ewma_decode_step_s,
-                                             sample)
-        self.decode_obs += 1
-        self.steps += 1
-        self._submit_step_io(n_live=len(live))
-
-        emitted = 0
-        freed = []
-        for i in live:
-            req = self.slots[i]
-            tok = int(toks[i])
-            req.out_tokens.append(tok)
-            emitted += 1
-            self.mmu.extend_seq(req.rid, 1, slot=i)
-            total = len(req.prompt) + len(req.out_tokens)
-            if (len(req.out_tokens) >= req.max_new_tokens
-                    or total >= self.max_len):
-                req.done = True
-                req.t_done = time.perf_counter()
-                self.mmu.free_seq(req.rid)
-                self.block_table.unbind(i)
-                self.completed.append(req)
-                self.slots[i] = None
-                freed.append(i)
-            if self.token_sink is not None:
-                self.token_sink(req, tok, req.done)
-        if freed:
-            self._sync_slot_state(freed, [(0, 0, 0.0, 0, 1.0, 0)] * len(freed))
-        self.tokens_out += emitted
-        return emitted
+            with spans.span("engine.wait") as wait:
+                toks = next_toks.cpu().numpy()
+                t1 = time.perf_counter()
+                wait.close(t1)
+            return toks, t1, t1 - t0
+        # model-rank 0's tokens and step time, broadcast over the group
+        toks, sample, self.dev_tokens = self._tp_agree(next_toks, t0)
+        return toks, time.perf_counter(), sample
 
     # ---------------------------------------------------------- billing ----
     def _submit_step_io(self, n_live: int) -> None:

@@ -1,2 +1,2 @@
-from repro_torch.telemetry import hlo_cost, roofline
-__all__ = ["hlo_cost", "roofline"]
+from repro_torch.telemetry import hlo_cost, roofline, spans
+__all__ = ["hlo_cost", "roofline", "spans"]

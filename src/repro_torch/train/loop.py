@@ -61,6 +61,7 @@ from repro_torch.models import transformer as T
 from repro_torch.models.sharding import (MeshRules, P, flatten_specs,
                                          local_shard, reshard)
 from repro_torch.optim import adamw
+from repro_torch.telemetry import spans
 
 
 class SimulatedFailure(InjectedFault):
@@ -126,20 +127,28 @@ class Trainer:
         return f"{self.cfg.arch_id}|{self.shape.name}|{self.tcfg.seed}"
 
     def _train_step(self, params, opt_state, batch):
-        cfg, tcfg = self.cfg, self.tcfg
-        loss, metrics = T.loss_fn(params, cfg, batch, remat=tcfg.remat,
-                                  compute_dtype=tcfg.compute_dtype)
-        leaves = adamw.flatten(params)
-        grads = torch.autograd.grad(loss, list(leaves.values()))
-        grads = adamw.unflatten(dict(zip(leaves, grads)))
-        new_ef = None
-        if tcfg.compression is not None:
-            ef = opt_state.pop("ef", None)
-            grads, new_ef, _ = tcfg.compression.apply(grads, ef)
-        params, opt_state, om = adamw.update(grads, opt_state, params,
-                                             tcfg.opt)
-        if new_ef is not None:
-            opt_state["ef"] = new_ef
+        """One step, under a ``train.step`` span whose ``train.forward``,
+        ``train.backward`` and ``train.optimizer`` children also time the
+        device (``repro_torch.telemetry.spans``)."""
+        cfg, tcfg, dev = self.cfg, self.tcfg, self.device
+        with spans.span("train.step"):
+            with spans.span("train.forward", device=dev):
+                loss, metrics = T.loss_fn(params, cfg, batch,
+                                          remat=tcfg.remat,
+                                          compute_dtype=tcfg.compute_dtype)
+            leaves = adamw.flatten(params)
+            with spans.span("train.backward", device=dev):
+                grads = torch.autograd.grad(loss, list(leaves.values()))
+            grads = adamw.unflatten(dict(zip(leaves, grads)))
+            with spans.span("train.optimizer", device=dev):
+                new_ef = None
+                if tcfg.compression is not None:
+                    ef = opt_state.pop("ef", None)
+                    grads, new_ef, _ = tcfg.compression.apply(grads, ef)
+                params, opt_state, om = adamw.update(grads, opt_state,
+                                                     params, tcfg.opt)
+                if new_ef is not None:
+                    opt_state["ef"] = new_ef
         m = {k: v.detach() for k, v in metrics.items()}
         m.update(om)
         return params, opt_state, m

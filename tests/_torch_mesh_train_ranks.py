@@ -308,3 +308,27 @@ def cp_decode(rank, world, device, arch, steps=4):
             cache_err = max(cache_err, float((v - ref).abs().max()))
         tok = want.argmax(-1, keepdim=True)
     return {"err": err, "cache_err": cache_err}
+
+
+def mesh_step_spans(rank, world, device, arch, microbatches, steps):
+    """``steps`` steps of a ``make_train_bundle(microbatches=...)`` on a
+    (1, 1) mesh with the span recorder on, reduced config, seeded
+    weights: the spans as (name, id, parent, start ns, end ns)."""
+    from repro_torch.models import transformer as T
+    from repro_torch.telemetry import spans
+    cfg = _cfg(arch)
+    mesh = make_host_mesh(1, 1, device=device.type)
+    b = make_train_bundle(cfg, SHAPE, mesh, remat="none", compute_dtype=None,
+                          microbatches=microbatches)
+    params = T.init_params(cfg, generator=torch.Generator().manual_seed(3),
+                           dtype=torch.float32, device=device)
+    opt = adamw.init(params)
+    tokens = torch.randint(3, cfg.vocab_size,
+                           (SHAPE.global_batch, SHAPE.seq_len),
+                           generator=torch.Generator().manual_seed(4))
+    step = b.jitted()
+    with spans.enable():
+        for _ in range(steps):
+            params, opt, _ = step(params, opt, {"tokens": tokens})
+    return [(r.name, r.id, r.parent, r.start_ns, r.end_ns)
+            for r in spans.snapshot()]

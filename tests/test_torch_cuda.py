@@ -986,3 +986,85 @@ def test_zamba2_prefill_on_the_card_launches_and_matches_the_cpu(card):
                       (gc["mamba"]["conv"], cc["mamba"]["conv"]),
                       (gc["mamba"]["ssm"], cc["mamba"]["ssm"])):
         torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=0)
+
+
+def _device_events(prof):
+    """(name, start ns, end ns) of the trace's device events after its pad
+    of spin kernels, in start order."""
+    ev = sorted(((e.name(), e.start_ns(), e.start_ns() + e.duration_ns())
+                 for e in prof.profiler.kineto_results.events()
+                 if str(e.device_type()).endswith("CUDA")),
+                key=lambda x: x[1])
+    pads = [i for i, x in enumerate(ev) if "spin_kernel" in x[0]]
+    assert pads, "the trace dropped its whole pad"
+    return ev[pads[-1] + 1:]
+
+
+def test_engine_spans_share_the_profilers_clock_on_the_card(card):
+    """Under a CUDA profiler the engine records its spans on the profiler's
+    clock: every decode step's device-to-host copy of its tokens lies
+    inside that step's read-back ``engine.wait`` span, to 50 us, and no
+    span is drawn on the device's timeline."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.telemetry import spans
+    cfg = get_config("smollm-135m").reduced()
+    eng = ServingEngine(cfg, _params(cfg, card),
+                        MMU(MMUConfig(page_size=8, n_pages=128)),
+                        max_batch=3, max_len=96, prefill_chunk=16,
+                        device=card)
+    rs = np.random.RandomState(2)
+    for _ in range(3):
+        eng.submit(rs.randint(0, cfg.vocab_size, 30).tolist(),
+                   max_new_tokens=12)
+    while not eng.decode_step_times:         # builds the decode kernel
+        eng.step()
+    spans.reset()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(4000):
+            torch.cuda._sleep(1)
+        torch.cuda.synchronize()
+        while eng.pending():
+            eng.step()
+        torch.cuda.synchronize()
+    recs = spans.snapshot()
+    dev = _device_events(prof)
+    assert not [n for n, _, _ in dev if n.startswith("engine.")]
+    copies = [(s, e) for n, s, e in dev if "Memcpy DtoH" in n]
+    decodes = [r for r in recs if r.name == "engine.decode"]
+    assert len(decodes) >= 5
+    slack = 50_000
+    for d in decodes:
+        (wait,) = [r for r in recs if r.parent == d.id
+                   and r.name == "engine.wait"]
+        mine = [(s, e) for s, e in copies
+                if d.start_ns <= s <= d.end_ns + slack]
+        assert len(mine) == 1, (d, mine)
+        s, e = mine[0]
+        assert wait.start_ns - slack <= s and e <= wait.end_ns + slack
+
+
+def test_device_spans_time_the_card(card, tmp_path):
+    """A span given the card records CUDA events, read once they have
+    completed; the Trainer's three phases carry them."""
+    from repro_torch.telemetry import spans
+    spans.reset()
+    a = torch.randn(1024, 1024, device=card)
+    with spans.enable():
+        with spans.span("mm", device=card):
+            for _ in range(20):
+                a = a @ a / 32
+        torch.cuda.synchronize()
+        (r,) = spans.snapshot()
+        assert r.device_ms is not None and 0 < r.device_ms < 1000
+        spans.reset()
+        cfg = get_config("smollm-135m").reduced()
+        Trainer(cfg, ShapeConfig("t", "train", 64, 2), TrainConfig(
+            steps=2, log_every=1, ckpt_every=0, ckpt_dir=str(tmp_path)),
+            device=card).run()
+    torch.cuda.synchronize()
+    recs = spans.snapshot()
+    spans.reset()
+    for phase in ("train.forward", "train.backward", "train.optimizer"):
+        got = [r.device_ms for r in recs if r.name == phase]
+        assert len(got) == 2 and all(x is not None and x > 0 for x in got)
