@@ -46,7 +46,12 @@ three times (``padded_trace``).  Phases, in order:
      an initial state and zamba2's shape; the SSD backward (bf16 on the
      tensor cores, float32 on FMA) against ``ref.ssd_chunked_bwd`` on
      those cases (G > 1, ragged S, an initial state with a dfinal_state)
-     and phase 17's mamba2 and zamba2 training shapes;
+     and phase 17's mamba2 and zamba2 training shapes; paged prefill
+     attention (bf16 on the tensor cores, float32 on FMA) at h2o-danube's
+     chunk shape (rows at positions 0, 2048 and 7168, padded queries, a
+     padding row, unmapped pages) and at phase 4's smollm chunk shape
+     (9 / 3 heads of 64) against its plain version, bf16 within
+     ``ref.bf16_prefill_bound`` elementwise;
   4. serving main path: 24 requests through the engine at full width, bf16,
      every paged-attention call on ``pa_decode_kernel``;
  10. h2o-danube serving: 8 requests of 256-1024 prompt tokens, 32 new
@@ -132,7 +137,10 @@ three times (``padded_trace``).  Phases, in order:
      (with SDPA's forward and backward); the SSD backward at phase 17's
      mamba2 and zamba2 training shapes, bf16 (the tensor-core kernels),
      and at mamba2's in float32 (the FMA kernel; no library call
-     computes it);
+     computes it); paged prefill attention (bf16) at one h2o-danube
+     chunk at position 2048 and at a danube-longdoc chunk step, with its
+     operations bound and the plain version's time (no library call
+     walks a block table);
  17. every family trains on the card at full width (FAMILY_TRAIN):
      mamba2-1.3b, zamba2-2.7b with ``remat="full"`` and granite-moe-1b-
      a400m, sequence 2048, batch 4, bf16 compute over float32
@@ -200,6 +208,9 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PA_SOURCE = "src/repro_torch/csrc/paged_attention.cu"
 PA_REPLACES = "src/repro/kernels/paged_attention/paged_attention.py:47"
+PP_SOURCE = "src/repro_torch/csrc/paged_prefill.cu"
+PP_REPLACES = ("none: plain jnp gather + einsum in "
+               "src/repro/serve/paged_model.py, no pallas_call")
 FA_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
 FA_BWD_SOURCE = "src/repro_torch/csrc/flash_attention_bwd.cu"
 # the kernel each dtype runs, by the kernels line's name
@@ -208,6 +219,9 @@ VARIANTS = {
         "bfloat16": "pa_decode_kernel (16-byte cp.async ring, a lane group "
                     "per token, splits merged by the row's last block)",
         "float32": "pa_decode_kernel (the same template, 4 floats a lane)"},
+    "paged_prefill": {
+        "bfloat16": "pp_fwd_wgmma_kernel (wgmma, a TMA box per page)",
+        "float32": "pp_fwd_kernel (float32 FMA)"},
     "flash_attention_fwd": {"bfloat16": "fa_fwd_wgmma_kernel (wgmma, TMA)",
                             "float32": "fa_fwd_kernel (float32 FMA)"},
     "flash_attention_dq": {"bfloat16": "fa_dq_wgmma_kernel (wgmma, TMA)",
@@ -373,6 +387,33 @@ MAIN_SHAPE = (16, 9, 3, 64, 16, 64, 2048)
 # phase 7: h2o-danube-3-4b's decode (phase 10's engine: 8 rows, maxp 66 for
 # max_len 1056), rows of 256-1056 tokens
 H2O_SHAPE = (8, 32, 8, 120, 16, 66, 1024)
+# paged prefill at h2o-danube-3-4b's chunk shape (32 / 8 heads of 120,
+# page 16, 512 pages a row for max_len 8192, chunks of 512 queries), each
+# live row's table mapped to ``prompt_end``.  Phase 3: rows at positions
+# 0, 2048 (300 real queries) and 7168, a padding row, and an unmapped page
+# in each of the first two rows (row 0's first, so its first queries see no
+# key).  Phase 3 also checks phase 4's smollm chunk shape (9 / 3 heads of
+# 64, page 16, 64 pages a row for max_len 1024, chunks of 256): rows at 0,
+# 256 (100 real queries) and 768, a padding row, row 0's first page and
+# one of row 1's unmapped.  Phase 7: one row's chunk at position 2048, and
+# a chunk step of the danube-longdoc cell (3 rows at 1024, 2048 and 3584,
+# a padding row).
+PP_DANUBE = dict(t=512, h=32, kh=8, d=120, page=16, maxp=512, n_pages=1100)
+PP_CHECK = {
+    "danube": dict(PP_DANUBE, q_starts=(0, 2048, 7168, 0),
+                   q_lens=(512, 300, 512, 0),
+                   prompt_end=(1500, 3000, 8192, 0),
+                   unmapped=((0, 0), (1, 100))),
+    "smollm": dict(t=256, h=9, kh=3, d=64, page=16, maxp=64, n_pages=2048,
+                   q_starts=(0, 256, 768, 0), q_lens=(256, 100, 256, 0),
+                   prompt_end=(300, 700, 1024, 0),
+                   unmapped=((0, 0), (1, 5)))}
+PP_TIMING = {
+    "row": dict(PP_DANUBE, q_starts=(2048,), q_lens=(512,),
+                prompt_end=(4096,), unmapped=()),
+    "step": dict(PP_DANUBE, q_starts=(1024, 2048, 3584, 0),
+                 q_lens=(512, 512, 512, 0), prompt_end=(4096, 4096, 6144, 0),
+                 unmapped=())}
 # phase 7's sweep of the paged kernel's split and ring depth (both shapes)
 PA_SWEEP_PAGES = (2, 4, 8, 16, 32, 64)
 PA_SWEEP_STAGES = (1, 2, 3, 4, 6)
@@ -630,6 +671,98 @@ def phase_kernels(pa, ref, gen):
     return main_err
 
 
+def pp_inputs(spec, dtype, gen):
+    """q, one layer's pools, tables, q_starts and q_lens of a paged prefill
+    spec on the card: each live row's table maps random distinct pages up
+    to its ``prompt_end``, then its ``unmapped`` entries are -1."""
+    n, dev = len(spec["q_starts"]), gen.device
+    page, maxp, n_pages = spec["page"], spec["maxp"], spec["n_pages"]
+    tables = torch.full((n, maxp), -1, dtype=torch.int32)
+    pick = torch.Generator().manual_seed(n * 1000 + n_pages)
+    for i, end in enumerate(spec["prompt_end"]):
+        need = -(-end // page)
+        tables[i, :need] = torch.randperm(n_pages, generator=pick)[:need]
+    for i, p in spec["unmapped"]:
+        tables[i, p] = -1
+    q = torch.randn(n, spec["t"], spec["h"], spec["d"], generator=gen,
+                    device=dev)
+    kv = [torch.randn(n_pages, page, spec["kh"], spec["d"], generator=gen,
+                      device=dev) for _ in range(2)]
+    i32 = dict(dtype=torch.int32, device=dev)
+    return (q.to(dtype), kv[0].to(dtype), kv[1].to(dtype), tables.to(dev),
+            torch.tensor(spec["q_starts"], **i32),
+            torch.tensor(spec["q_lens"], **i32))
+
+
+def pp_visible_pairs(spec, tables) -> int:
+    """(query, key) pairs of one query head that the mask leaves visible:
+    key j < q_start + q_len, j <= q_start + t, on a mapped page."""
+    tab = tables.cpu().numpy()
+    page, total = spec["page"], 0
+    for i, (q0, ql) in enumerate(zip(spec["q_starts"], spec["q_lens"])):
+        ok = np.repeat(tab[i] >= 0, page)[:q0 + ql]
+        seen = np.cumsum(ok)
+        last = np.minimum(q0 + np.arange(spec["t"]), q0 + ql - 1)
+        total += int(seen[last].sum()) if q0 + ql > 0 else 0
+    return total
+
+
+def pp_plain(q, kp, vp, tables, q_starts, q_lens, bound=False):
+    """The plain version in float32, or with ``bound`` the bf16 kernel's
+    elementwise tolerance around it (``ref.bf16_prefill_bound``), a row at
+    a time (one danube row's scores are 0.5 GB)."""
+    from repro_torch.kernels.paged_attention.ref import (bf16_prefill_bound,
+                                                         paged_prefill_ref)
+    rows = []
+    for i in range(q.shape[0]):
+        row = (q[i:i + 1], kp, vp, tables[i:i + 1], q_starts[i:i + 1],
+               q_lens[i:i + 1])
+        want = paged_prefill_ref(row[0].float(), kp.float(), vp.float(),
+                                 *row[3:])
+        rows.append(bf16_prefill_bound(*row, want) if bound else want)
+    return torch.cat(rows)
+
+
+def phase_prefill_kernels(gen):
+    """The paged prefill kernel against its plain version at each PP_CHECK
+    shape, both dtypes: float32 within ATOL, bf16 within
+    ``ref.bf16_prefill_bound`` elementwise; a padding row and queries with
+    no visible key exactly 0.  Returns the bf16 errors by shape."""
+    from repro_torch.kernels.paged_attention import paged_prefill as pp
+    err16 = {}
+    for name, spec in PP_CHECK.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            args = pp_inputs(spec, dtype, gen)
+            out = pp.paged_prefill(*args)
+            want = pp_plain(*args)
+            tol = (pp_plain(*args, bound=True) if dtype == torch.bfloat16
+                   else torch.full_like(want, ATOL[dtype]))
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(out).all()),
+                  f"paged prefill {name} non-finite")
+            check(bool((out[-1] == 0).all()), f"paged prefill {name}: the "
+                  "padding row is not exactly 0")
+            check(bool((out[0, :spec["page"]] == 0).all()),
+                  f"paged prefill {name}: queries with no visible key are "
+                  "not exactly 0")
+            diff = (out.float() - want).abs()
+            err, over = float(diff.max()), float((diff / tol).max())
+            tol_is = (f"atol {ATOL[dtype]:g}" if dtype == torch.float32
+                      else "bf16_prefill_bound")
+            print(f"[3] paged_prefill {name} {str(dtype):14s} "
+                  f"N={len(spec['q_starts'])} T={spec['t']} H={spec['h']} "
+                  f"K={spec['kh']} D={spec['d']} page={spec['page']} "
+                  f"maxp={spec['maxp']} q_starts={spec['q_starts']} "
+                  f"q_lens={spec['q_lens']} max_abs_err={err:.3e} "
+                  f"max_err_over_tol={over:.3f} ({tol_is})")
+            check(over <= 1, f"paged prefill {name} vs plain {dtype}: "
+                  f"{over:.3f} x its tolerance")
+            if dtype == torch.bfloat16:
+                err16[name] = err
+            del args, out, want, tol, diff
+    return err16
+
+
 def _sms():
     return torch.cuda.get_device_properties(0).multi_processor_count
 
@@ -669,6 +802,32 @@ def main_requests(cfg):
     return reqs
 
 
+def prefill_launches_wanted(eng, obs0=0):
+    """The paged prefill kernels' launches, as ``_launch_counts`` keys them,
+    of ``eng``'s prefill calls since it had made ``obs0`` (its
+    ``prefill_obs``, one a chunk or batch call): one a layer, on the
+    kernel its pools' dtype picks."""
+    n = eng.cfg.n_layers * (eng.prefill_obs - obs0)
+    tc = eng.pools["k"].dtype == torch.bfloat16
+    return {"paged_prefill_wgmma": n if tc else 0,
+            "paged_prefill_fma": 0 if tc else n}
+
+
+def check_prefill_launches(eng, what, obs0=0):
+    """``eng``'s prefill calls since ``obs0`` launched the paged prefill
+    kernel of its pools' dtype once per layer, and nothing else launched
+    it since the counts were zeroed.  Returns the launches."""
+    from repro_torch.kernels.paged_attention import paged_prefill as pp
+    want = prefill_launches_wanted(eng, obs0)
+    got = {"paged_prefill_wgmma": pp.WGMMA_LAUNCHES,
+           "paged_prefill_fma": pp.FMA_LAUNCHES}
+    check(got == want and pp.LAUNCHES == sum(want.values()),
+          f"{what}: paged prefill launches {got} (all {pp.LAUNCHES}), not "
+          f"{want} for {eng.cfg.n_layers} layers x "
+          f"{eng.prefill_obs - obs0} prefill calls")
+    return pp.LAUNCHES
+
+
 def phase_main_path(card):
     """Returns the main path's paged-attention launches, config and
     weights."""
@@ -706,6 +865,7 @@ def phase_main_path(card):
               f"rid {r.rid} token outside the vocabulary")
     check(launches == cfg.n_layers * eng.steps,
           f"LAUNCHES {launches} != {cfg.n_layers} x {eng.steps} steps")
+    pp_launches = check_prefill_launches(eng, "main path")
     check(eng.prefill_skipped > 0, "no prompt page was shared")
     st = np.asarray(eng.decode_step_times) * 1e3
     line = {
@@ -723,6 +883,7 @@ def phase_main_path(card):
         **{k: stats[k] for k in ("ttft_p50_ms", "ttft_p99_ms",
                                  "tpot_p50_ms", "tpot_p99_ms")},
         "pa_launches": launches, "pa_kernel": "pa_decode_kernel",
+        "pp_launches": pp_launches, "pp_kernel": "pp_fwd_wgmma_kernel",
     }
     print("[4] " + json.dumps(line))
     return launches, cfg, params
@@ -780,6 +941,7 @@ def phase_h2o_serving(card):
               f"h2o rid {r.rid} token outside the vocabulary")
     check(launches == cfg.n_layers * eng.steps,
           f"h2o LAUNCHES {launches} != {cfg.n_layers} x {eng.steps} steps")
+    pp_launches = check_prefill_launches(eng, "h2o")
     check(all(n == 0 for n in _flash_counts().values())
           and _ssd_count() == 0,
           "the h2o serving path launched a flash or SSD kernel")
@@ -796,6 +958,7 @@ def phase_h2o_serving(card):
         "prefill_tokens_per_s": eng.prefill_computed / eng.prefill_s,
         "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
         "pa_launches": launches, "pa_kernel": "pa_decode_kernel",
+        "pp_launches": pp_launches, "pp_kernel": "pp_fwd_wgmma_kernel",
         "first_tokens": [r.out_tokens[:6] for r in eng.completed[:2]]}))
     del eng, mmu, params
     torch.cuda.empty_cache()
@@ -881,6 +1044,7 @@ def _serve_two_tenants(shell, cfg, out):
     sched = shell.scheduler
     bytes0 = {t: s["bytes"] for t, s in sched.stats()["tenants"].items()}
     io0, steps0, done0 = eng.io_bytes, eng.steps, len(eng.completed)
+    obs0 = eng.prefill_obs
     _zero_counts()
     t_sub, futs = [], []
     for tenant, prompt in prompts:
@@ -925,6 +1089,7 @@ def _serve_two_tenants(shell, cfg, out):
     steps = eng.steps - steps0
     check(launches == cfg.n_layers * steps,
           f"slot 0 LAUNCHES {launches} != {cfg.n_layers} x {steps} steps")
+    check_prefill_launches(eng, "slot 0", obs0)
     check(all(n == 0 for n in _flash_counts().values())
           and _ssd_count() == 0, "slot 0 launched a flash or SSD kernel")
     lat = {"gold": ([], []), "bronze": ([], [])}
@@ -1537,11 +1702,13 @@ def phase_dense_cache(card, cfg, params):
     of both models' dense prefill and decode.  The dense prefill's
     attention runs on the flash forward kernel (bf16: the tensor-core
     one), the dense decode's is plain PyTorch, the paged decode's
-    ``pa_decode_kernel``."""
+    ``pa_decode_kernel`` and the paged prefill's (float32)
+    ``pp_fwd_kernel``."""
     from repro_torch.configs import get_config
     from repro_torch.core.services.mmu import MMU, MMUConfig
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.paged_attention import paged_attention as pa
+    from repro_torch.kernels.paged_attention import paged_prefill as pp
     from repro_torch.models import transformer as T
     from repro_torch.serve.paged_model import (_decode_logits,
                                                _prefill_logits, make_pools)
@@ -1613,13 +1780,15 @@ def phase_dense_cache(card, cfg, params):
     torch.cuda.synchronize()
     check(max(errs) <= DENSE_ATOL, f"smollm dense vs paged: {max(errs)}")
     check(pa.LAUNCHES == cfg.n_layers * (n - 1)
-          and fa.FMA_LAUNCHES == cfg.n_layers,
+          and fa.FMA_LAUNCHES == cfg.n_layers
+          and pp.LAUNCHES == pp.FMA_LAUNCHES == cfg.n_layers,
           f"smollm fp32 launches: paged {pa.LAUNCHES}, fwd "
-          f"{fa.FMA_LAUNCHES}")
+          f"{fa.FMA_LAUNCHES}, paged prefill {pp.LAUNCHES} "
+          f"({pp.FMA_LAUNCHES} FMA)")
     out["smollm_fp32_dense_vs_paged"] = {
         "rows": b, "prompt": sp, "decode_steps": n - 1,
         "max_abs_err": max(errs), "atol": DENSE_ATOL,
-        "pa_launches": pa.LAUNCHES}
+        "pa_launches": pa.LAUNCHES, "pp_fma_launches": pp.FMA_LAUNCHES}
     del sp32, cache, pools, mmu
 
     # bf16 timing: smollm (phase 4's weights) and h2o-danube
@@ -1703,8 +1872,8 @@ def _serve_moe(card, cfg, make_engine, reqs, new_tokens, tag):
     """Serve ``reqs`` twice, each time on a new (mmu, engine) from
     ``make_engine``: first untimed through the drop meter, then with every
     launch count zeroed just before and read just after; the hard checks
-    of phase 14.  Returns the paged launches and the printed line's
-    dict."""
+    of phase 14.  Returns the paged decode launches and the printed line's
+    dict (with the paged prefill launches)."""
     from repro_torch.kernels.paged_attention import paged_attention as pa
     drops = _moe_drop_shares(cfg, make_engine()[1], reqs, new_tokens)
     mmu, eng = make_engine()
@@ -1716,6 +1885,7 @@ def _serve_moe(card, cfg, make_engine, reqs, new_tokens, tag):
     stats = eng.run()
     torch.cuda.synchronize()
     launches = pa.LAUNCHES
+    pp_launches = check_prefill_launches(eng, tag)
     n = len(reqs)
     check(stats["completed"] == n and len({r.rid for r in eng.completed})
           == n, f"{tag}: completed {stats['completed']}/{n}")
@@ -1745,6 +1915,7 @@ def _serve_moe(card, cfg, make_engine, reqs, new_tokens, tag):
         **drops,
         "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
         "pa_launches": launches, "pa_kernel": "pa_decode_kernel",
+        "pp_launches": pp_launches,
         "first_tokens": [r.out_tokens[:6] for r in eng.completed[:2]]}
     return launches, line
 
@@ -1752,7 +1923,8 @@ def _serve_moe(card, cfg, make_engine, reqs, new_tokens, tag):
 def phase_granite_serving(card):
     """granite-moe-1b-a400m at full width (24 layers, d_model 1024, 16 / 8
     heads of 64, 32 experts top-8, capacity factor 1.25) in bf16 through
-    ``main_engine`` with phase 4's traffic.  Returns its paged launches."""
+    ``main_engine`` with phase 4's traffic.  Returns its paged decode and
+    paged prefill launches."""
     from repro_torch.configs import get_config
     from repro_torch.models.transformer import init_params
 
@@ -1771,7 +1943,7 @@ def phase_granite_serving(card):
     phase_decode_profile(cfg, params, card, "granite-moe-1b-a400m")
     del params
     torch.cuda.empty_cache()
-    return launches
+    return launches, line["pp_launches"]
 
 
 def phase_llama4_serving(card):
@@ -1781,7 +1953,7 @@ def phase_llama4_serving(card):
     requests of 128-512 prompt tokens, LLAMA4_NEW_TOKENS new, half
     sampled.  ``init_params`` casts each layer to bf16 before stacking, so
     the 4 layers' ~35 GB of float32 are never alive at once.  Returns its
-    paged launches."""
+    paged decode and paged prefill launches."""
     from repro_torch.configs import get_config
     from repro_torch.core.services.mmu import MMU, MMUConfig
     from repro_torch.models.transformer import init_params
@@ -1821,7 +1993,7 @@ def phase_llama4_serving(card):
         "shared_experts": cfg.moe.n_shared_experts, **line}))
     del params
     torch.cuda.empty_cache()
-    return launches
+    return launches, line["pp_launches"]
 
 
 def phase_moe_layer_card_vs_cpu(card):
@@ -2218,6 +2390,44 @@ def phase_timing(pa, ref, gen, card):
     return res
 
 
+def phase_prefill_timing(gen, card):
+    """The paged prefill kernel (bf16) at PP_TIMING's shapes, L2 flushed
+    before each call, warm: CUDA-event time, the operations bound (4 D H
+    flops per visible pair over the tensor cores' 989 TFLOP/s; the bytes
+    read are far below it) and the plain version's time.  Returns
+    {shape name: (kernel ms, plain ms, bound ms)}."""
+    from repro_torch.kernels.paged_attention import paged_prefill as pp
+    from repro_torch.kernels.paged_attention.ref import paged_prefill_ref
+    launches = (pp.LAUNCHES, pp.WGMMA_LAUNCHES, pp.FMA_LAUNCHES)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    res = {}
+    for name, spec in PP_TIMING.items():
+        args = pp_inputs(spec, torch.bfloat16, gen)
+        pairs = pp_visible_pairs(spec, args[3])
+        flops = 4 * spec["d"] * spec["h"] * pairs
+
+        def call():
+            return pp.paged_prefill(*args)
+
+        for _ in range(20):                # warm: clocks up
+            call()
+        k_ms = time_ms(call, 50, flush)
+        p_ms = time_ms(lambda: paged_prefill_ref(*args), 5, flush)
+        bound = flops / PEAK_FLOPS[torch.bfloat16] * 1e3
+        res[name] = (k_ms[0], p_ms[0], bound)
+        print(f"[7] paged_prefill {name} bfloat16 N={len(spec['q_starts'])} "
+              f"T={spec['t']} H={spec['h']} K={spec['kh']} D={spec['d']} "
+              f"q_starts={spec['q_starts']} visible_pairs_per_head={pairs} "
+              f"GFLOP={flops / 1e9:.2f}: kernel_ms={spread(k_ms)} "
+              f"({flops / k_ms[0] / 1e9:.1f} TFLOP/s) plain_ms={spread(p_ms)} "
+              f"bound_ms={bound:.4f} ({bound / k_ms[0]:.1%} of the bound) "
+              f"[{card}]")
+        del args
+    # timing launches are not main-path
+    pp.LAUNCHES, pp.WGMMA_LAUNCHES, pp.FMA_LAUNCHES = launches
+    return res
+
+
 def _pad_and_trace(work, acts):
     """One ``torch.profiler`` trace of ``work()`` led by the pad:
     PROFILE_PAD_KERNELS empty spin kernels, waited for, then the work,
@@ -2498,13 +2708,20 @@ def _zero_counts():
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.flash_attention import flash_attention_bwd as fab
     from repro_torch.kernels.paged_attention import paged_attention as pa
+    from repro_torch.kernels.paged_attention import paged_prefill as pp
     from repro_torch.kernels.ssd import ssd
     pa.LAUNCHES = fa.LAUNCHES = fab.DQ_LAUNCHES = fab.DKV_LAUNCHES = 0
+    pp.LAUNCHES = pp.WGMMA_LAUNCHES = pp.FMA_LAUNCHES = 0
     fa.WGMMA_LAUNCHES = fa.FMA_LAUNCHES = 0
     fab.DQ_WGMMA_LAUNCHES = fab.DQ_FMA_LAUNCHES = 0
     fab.DKV_WGMMA_LAUNCHES = fab.DKV_FMA_LAUNCHES = 0
     ssd.LAUNCHES = ssd.TC_LAUNCHES = ssd.FMA_LAUNCHES = 0
     ssd.BWD_LAUNCHES = ssd.BWD_TC_LAUNCHES = ssd.BWD_FMA_LAUNCHES = 0
+
+
+def _pp_count():
+    from repro_torch.kernels.paged_attention import paged_prefill as pp
+    return pp.LAUNCHES
 
 
 def _ssd_count():
@@ -3710,9 +3927,12 @@ def phase_whisper_train(card):
 
 
 def _launch_counts():
-    """Every kernel's launches: paged, flash by variant, SSD by path."""
+    """Every kernel's launches: paged decode, paged prefill by kernel,
+    flash by variant, SSD by path."""
     from repro_torch.kernels.paged_attention import paged_attention as pa
-    return {"paged": pa.LAUNCHES, **_variant_counts(),
+    from repro_torch.kernels.paged_attention import paged_prefill as pp
+    return {"paged": pa.LAUNCHES, "paged_prefill_wgmma": pp.WGMMA_LAUNCHES,
+            "paged_prefill_fma": pp.FMA_LAUNCHES, **_variant_counts(),
             **{f"ssd_{k}": v for k, v in _ssd_paths().items()}}
 
 
@@ -3829,7 +4049,7 @@ def phase_family_train(card, arch, batch, remat, trace=False):
     check(steps == FAMILY_STEPS, f"{arch}: {steps} steps run")
     check(all(math.isfinite(x) for x in losses),
           f"{arch}: non-finite loss {losses}")
-    want = {"paged": 0,
+    want = {"paged": 0, "paged_prefill_wgmma": 0, "paged_prefill_fma": 0,
             "fwd_wgmma": twice * n_attn * steps, "fwd_fma": 0,
             "dq_wgmma": n_attn * steps, "dq_fma": 0,
             "dkv_wgmma": n_attn * steps, "dkv_fma": 0,
@@ -3862,8 +4082,9 @@ def phase_serve_launcher(card):
     """Phase 18: ``repro_torch.launch.serve.main([])`` on the card at its
     defaults (the reduced smollm-135m, float32, 16 requests of 16 new
     tokens through 8 slots): every request completes with all its tokens,
-    in the vocabulary, and the paged kernel launches once per layer a
-    decode step, nothing else.  Returns its paged launches."""
+    in the vocabulary, the paged kernel launches once per layer a decode
+    step and the float32 paged prefill kernel once per layer a prefill
+    call, nothing else.  Returns its paged decode and prefill launches."""
     import contextlib
     import io
     from repro_torch.launch import serve as launch_serve
@@ -3897,15 +4118,18 @@ def phase_serve_launcher(card):
             0 <= t < cfg.vocab_size for t in r.out_tokens),
               f"serve launcher: rid {r.rid} tokens {r.out_tokens}")
     check(stats["mmu"]["pages_used"] == 0, "serve launcher leaked pages")
-    want = dict({k: 0 for k in counts}, paged=cfg.n_layers * eng.steps)
+    want = dict({k: 0 for k in counts}, paged=cfg.n_layers * eng.steps,
+                **prefill_launches_wanted(eng))
     check(counts == want, f"serve launcher: launches {counts}, not {want}")
+    pp_launches = counts["paged_prefill_wgmma"] + counts["paged_prefill_fma"]
     print("[18] " + json.dumps({
         "card": card, "model": f"{cfg.arch_id} reduced (random weights, "
         "float32), the launcher's defaults", "wall_s": wall,
         "decode_steps": eng.steps, "paged_launches": counts["paged"],
+        "prefill_launches": pp_launches,
         **{k: stats[k] for k in ("completed", "tokens", "tokens_per_s",
                                  "ttft_p50_ms", "tpot_p50_ms")}}))
-    return counts["paged"]
+    return counts["paged"], pp_launches
 
 
 def phase_whisper_timing(gen, card):
@@ -4070,10 +4294,11 @@ def _tp_serving_engine(cfg, params, mesh, svc, dev):
 
 def _tp_drive(eng, drive):
     """Run ``drive()`` with launches counted from 0 and every paged-kernel
-    call's head counts recorded; check that the paged kernel, and no
-    other, launched once per layer a decode step at the rank's local
-    heads.  Returns the seconds ``drive`` took to the last sync, the
-    heads and the paged launches counted."""
+    call's head counts recorded; check that the paged kernel launched
+    once per layer a decode step at the rank's local heads, the paged
+    prefill kernel of the pools' dtype once per layer a prefill call, and
+    no other kernel.  Returns the seconds ``drive`` took to the last sync,
+    the heads, and the paged decode and prefill launches counted."""
     from repro_torch.serve import paged_model as PM
     heads, base = set(), PM.paged_decode
 
@@ -4092,12 +4317,14 @@ def _tp_drive(eng, drive):
     finally:
         PM.paged_decode = base
     check(eng.mmu.utilization()["pages_used"] == 0, "TP engine leaked pages")
-    want = dict({k: 0 for k in counts}, paged=eng.cfg.n_layers * eng.steps)
+    want = dict({k: 0 for k in counts}, paged=eng.cfg.n_layers * eng.steps,
+                **prefill_launches_wanted(eng))
     check(counts == want, f"TP engine launches {counts}, not {want}")
     local = (eng.tp.local_cfg.n_heads, eng.tp.local_cfg.n_kv_heads)
     check(heads == {local}, f"TP engine: paged calls at heads {heads}, "
                             f"not the local {local}")
-    return wall, sorted(heads), counts["paged"]
+    return (wall, sorted(heads), counts["paged"],
+            counts["paged_prefill_wgmma"] + counts["paged_prefill_fma"])
 
 
 def _tp_engine(cfg, params, mesh, svc, prompts, dev):
@@ -4116,14 +4343,15 @@ def _tp_engine(cfg, params, mesh, svc, prompts, dev):
             if eng.steps > s0 and eng.prefill_obs == p0:
                 decode_calls.append(svc.calls - c0)
 
-    wall, heads, launches = _tp_drive(eng, drive)
+    wall, heads, launches, pp_launches = _tp_drive(eng, drive)
     check(len(eng.completed) == TP_REQUESTS and all(
         len(r.out_tokens) == TP_STEPS for r in eng.completed),
           "TP engine: a request did not complete with all its tokens")
     st = np.asarray(eng.decode_step_times) * 1e3
     return eng, {
         "decode_steps": eng.steps, "paged_launches": launches,
-        "paged_heads": heads, "wall_s": wall,
+        "prefill_launches": pp_launches, "paged_heads": heads,
+        "wall_s": wall,
         "collectives_per_decode_step": sorted(set(decode_calls)),
         "decode_step_ms_p50": float(np.percentile(st, 50)),
         "decode_step_ms_p90": float(np.percentile(st, 90)),
@@ -4169,7 +4397,7 @@ def _tp_gateway(cfg, params, mesh, svc, prompts, dev):
             step += 1
 
     try:
-        wall, heads, launches = _tp_drive(eng, drive)
+        wall, heads, launches, _ = _tp_drive(eng, drive)
     finally:
         gateway_module.time = time
     st = gw.stats()
@@ -4306,8 +4534,8 @@ def _check_tp_gateway(outs, card):
 
 def phase_tensor_parallel(card):
     """Phase 19: tensor-parallel serving and the multi-rank collectives on
-    the card (see TP_REQUESTS).  Returns rank 0's paged launches of the
-    fp32 TP 3 engine."""
+    the card (see TP_REQUESTS).  Returns rank 0's paged decode and paged
+    prefill launches of the fp32 TP 3 engine."""
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import run_ranks
     cfg = get_config("smollm-135m")
@@ -4318,7 +4546,7 @@ def phase_tensor_parallel(card):
     torch.cuda.empty_cache()
     kw = dict(backend="gloo", device="cuda:0", timeout_s=TP_TIMEOUT_S,
               deadline_s=TP_DEADLINE_S)
-    launches = None
+    launches = pp_launches = None
     for world in (3, 2):
         t0 = time.perf_counter()
         outs = run_ranks(tp_rank, world, greedy, world == 3, **kw)
@@ -4346,6 +4574,7 @@ def phase_tensor_parallel(card):
         r0 = outs[0]
         if world == 3:
             launches = r0["fp32"]["paged_launches"]
+            pp_launches = r0["fp32"]["prefill_launches"]
         else:
             _check_tp_gateway(outs, card)
         print("[19] " + json.dumps({
@@ -4378,7 +4607,7 @@ def phase_tensor_parallel(card):
                               "seq"), TP_CP)),
         "handoff_exact": all(o["handoff_exact"] for o in outs),
         "host_copies": sum(o["host_copies"] for o in outs)}))
-    return launches
+    return launches, pp_launches
 
 
 def _smoke_trainer(cfg, seq, bf16, ckpt, mesh=None, dev="cuda", mb=1):
@@ -4803,20 +5032,25 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     pa_err = phase_kernels(pa, paged_attention_ref, gen)
+    pp_err = phase_prefill_kernels(gen)
     fa_err = phase_flash_kernels(gen)
     ssd_err = phase_ssd_kernels(gen)
     ssd_bwd_err = phase_ssd_bwd_kernels(gen)
     pa_launches, cfg, params = phase_main_path(card)
+    pp_by_path = {"serving_smollm": _pp_count()}
     check(all(n == 0 for n in _flash_counts().values()),
           "the serving path launched a flash-attention kernel")
     check(_ssd_count() == 0, "the serving path launched the SSD kernel")
     phase_h2o_serving(card)
+    pp_by_path["serving_h2o"] = _pp_count()
     _zero_counts()
     phase_shell(card, cfg, params)
     phase_migration(card, cfg, params)
     phase_dense_cache(card, cfg, params)
-    granite_launches = phase_granite_serving(card)
-    llama4_launches = phase_llama4_serving(card)
+    granite_launches, pp_by_path["serving_granite"] = \
+        phase_granite_serving(card)
+    llama4_launches, pp_by_path["serving_llama4"] = \
+        phase_llama4_serving(card)
     phase_moe_layer_card_vs_cpu(card)
     fa_launches, trainer, step_fn = phase_train(card)
     check(_ssd_count() == 0, "the training path launched the SSD kernel")
@@ -4830,8 +5064,10 @@ def main() -> int:
     family = {arch: phase_family_train(card, arch, batch, remat,
                                        trace=arch == "mamba2-1.3b")
               for arch, batch, remat in FAMILY_TRAIN}
-    serve_launches = phase_serve_launcher(card)
-    tp_launches = phase_tensor_parallel(card)
+    serve_launches, pp_by_path["serve_launcher"] = \
+        phase_serve_launcher(card)
+    tp_launches, pp_by_path["serving_smollm_tp3"] = \
+        phase_tensor_parallel(card)
     mesh_launches = phase_mesh_launchers(card)
     phase_card_vs_cpu()
     phase_card_vs_cpu("granite-moe-1b-a400m", "granite")
@@ -4847,6 +5083,7 @@ def main() -> int:
     phase_mamba_card_vs_cpu("zamba2-2.7b", "zamba2")
     phase_mamba_card_vs_cpu("whisper-medium", "whisper")
     timing = phase_timing(pa, paged_attention_ref, gen, card)
+    pp_timing = phase_prefill_timing(gen, card)
     fa_timing = phase_flash_timing(gen, card)
     ssd_timing = phase_ssd_timing(gen, card)
     ssd_bwd_timing = phase_ssd_bwd_timing(gen, card)
@@ -4868,6 +5105,7 @@ def main() -> int:
                             "serving_llama4": llama4_launches,
                             "serve_launcher": serve_launches,
                             "serving_smollm_tp3": tp_launches},
+        "paged_prefill": pp_by_path,
         "flash_attention_fwd": {"train": fa_launches["flash_attention_fwd"],
                                 "zamba2_prefill": zamba2_fa},
         "flash_attention_dq": {"train": fa_launches["flash_attention_dq"]},
@@ -4892,6 +5130,14 @@ def main() -> int:
         "replaces": PA_REPLACES, "max_abs_err": pa_err, "ms": k_ms,
         "plain_ms": p_ms, "bound_ms": bound, "bound_by": "bytes",
         "library_ms": None}]
+    k_ms, p_ms, bound = pp_timing["step"]
+    kernels.append({
+        "name": "paged_prefill", "route": "cuda", "source": PP_SOURCE,
+        "replaces": PP_REPLACES, "max_abs_err": pp_err, "ms": k_ms,
+        "plain_ms": p_ms, "bound_ms": bound, "bound_by": "operations",
+        "library_ms": None,
+        "one_row_shape": dict(zip(("ms", "plain_ms", "bound_ms"),
+                                  pp_timing["row"]))})
     for name, replaces in FA_REPLACES.items():
         kernels.append({
             "name": name, "route": "cuda",

@@ -1,1 +1,2 @@
-"""Paged-attention decode: CUDA kernel, plain version and dispatch."""
+"""Paged attention, decode and prefill: CUDA kernels, plain versions and
+dispatch."""

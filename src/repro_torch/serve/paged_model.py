@@ -1,8 +1,8 @@
 """Decode path through the MMU's paged KV pools.
 
 Twin of ``repro.serve.paged_model``: KV lives in the MMU service's page
-pools and decode attention walks the block tables through the CUDA
-paged-attention kernel (its plain version on the CPU).
+pools, and decode and prefill attention walk the block tables through the
+CUDA paged-attention kernels (their plain versions on the CPU).
 
 Contract, and where it differs from the reference:
 
@@ -22,6 +22,14 @@ Contract, and where it differs from the reference:
     ``pool[l * n_pages:(l + 1) * n_pages]`` — the base pointer offset by
     ``l * n_pages * page * K * D`` elements — with the raw block table,
     in place of the reference's biased table ``tables + l * n_pages``.
+  * **Prefill attention through the tables.**  Chunked and batched
+    prefill (``_prefill_layers``) hand each layer's pool view, the raw
+    tables, ``q_starts`` and ``q_lens`` to ``ops.paged_prefill``, which on
+    the card walks each row's own pages up to the last key its queries
+    see (``csrc/paged_prefill.cu``) and on the CPU runs the reference's
+    gather of the whole table and float32 einsums
+    (``ref.paged_prefill_ref``); the layer loop builds no key mask and
+    gathers no K or V.
   * **Clamped gathers.**  XLA clamps out-of-range indices; PyTorch raises
     on the CPU and faults on CUDA.  Every index is clamped exactly where
     the reference clamps (page ids at 0, virtual pages at ``maxp - 1``,
@@ -43,7 +51,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.kernels.paged_attention.ops import paged_decode
+from repro_torch.kernels.paged_attention.ops import (paged_decode,
+                                                     paged_prefill)
 from repro_torch.models import attention, layers, transformer
 from repro_torch.models.transformer import forward, lm_logits
 from repro_torch.serve.sampler import fold_row_keys, sample_per_row
@@ -159,29 +168,22 @@ def _prefill_layers(params, pools, tokens, q_lens, q_starts, write_from,
     ``repro_torch.serve.tp``); head counts come from ``cfg``, which is the
     rank's local config under TP."""
     dev = pools["k"].device
-    tokens, tables = tokens.to(dev).long(), tables.to(dev).long()
-    q_lens, q_starts = q_lens.to(dev).long(), q_starts.to(dev).long()
+    tokens = tokens.to(dev).long()
+    # int32, as the attention kernel takes them (no copy if they are)
+    tables = tables.to(dev, torch.int32)
+    q_lens = q_lens.to(dev, torch.int32)
+    q_starts = q_starts.to(dev, torch.int32)
     write_from = write_from.to(dev).long()
-    n, t = tokens.shape
+    t = tokens.shape[1]
     maxp = tables.shape[1]
     n_pages, sink = _geometry(cfg, pools)
-    kh = cfg.n_kv_heads
-    g = cfg.n_heads // kh
-    scale = cfg.resolved_head_dim ** -0.5
     ar = torch.arange(t, device=dev)
-    pos = q_starts[:, None] + ar[None, :]                   # (N,T) absolute
+    pos = q_starts[:, None] + ar[None, :]                   # (N,T) int64
     qvalid = ar[None, :] < q_lens[:, None]
-    kv_lens = q_starts + q_lens
     vpage = (pos // page_size).clamp(max=maxp - 1)
     off = pos % page_size
-    ppage = tables.gather(1, vpage)                         # (N,T)
+    ppage = tables.gather(1, vpage).long()                  # (N,T)
     wvalid = qvalid & (pos >= write_from[:, None]) & (ppage >= 0)
-    kpos = torch.arange(maxp * page_size, device=dev)[None]  # (1,S)
-    page_ok = (tables >= 0).repeat_interleave(page_size, dim=1)
-    kv_ok = (kpos < kv_lens[:, None]) & page_ok             # (N,S)
-    mask = kv_ok[:, None, :] & (kpos[:, None, :] <= pos[:, :, None])
-    any_ok = mask.any(dim=-1)                               # (N,T)
-    safe = tables.clamp_min(0)
     kp, vp = pools["k"], pools["v"]
 
     x = layers.embed_lookup(params["embed"], tokens)        # (N,T,D)
@@ -198,17 +200,10 @@ def _prefill_layers(params, pools, tokens, q_lens, q_starts, write_from,
         dst = torch.where(wvalid, base + ppage, sink)
         kp[dst, off] = k.to(kp.dtype)
         vp[dst, off] = v.to(vp.dtype)
-        # gather the full paged KV and run exact causal attention
-        kg = kp[safe + base].reshape(n, maxp * page_size, kh, -1)
-        vg = vp[safe + base].reshape(n, maxp * page_size, kh, -1)
-        qf = q.reshape(n, t, kh, g, -1).float()
-        s = torch.einsum("ntkgd,nskd->nkgts", qf, kg.float()) * scale
-        s = torch.where(mask[:, None, None], s, attention.NEG_INF)
-        p = torch.exp(s - s.amax(dim=-1, keepdim=True))
-        p = p / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-        att = torch.einsum("nkgts,nskd->ntkgd", p, vg.float())
-        att = torch.where(any_ok[:, :, None, None, None], att, 0.0)
-        att = att.reshape(n, t, cfg.n_heads, -1).to(x.dtype)
+        # causal attention over each row's own pages of this layer
+        att = paged_prefill(q, kp[base:base + n_pages],
+                            vp[base:base + n_pages], tables, q_starts,
+                            q_lens)
         x = _residual(x, attention.out_proj(lp["attn"], cfg, att), psum_attn)
         h = layers.norm_apply(lp["norm2"], x, cfg.norm_eps)
         x = _residual(x, _ffn(lp, cfg, h), psum_mlp)

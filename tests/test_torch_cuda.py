@@ -42,7 +42,10 @@ from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
                                                      bf16_dq_bound)
 from repro_torch.kernels.paged_attention import ops
 from repro_torch.kernels.paged_attention import paged_attention as pa
-from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+from repro_torch.kernels.paged_attention import paged_prefill as pp
+from repro_torch.kernels.paged_attention.ref import (bf16_prefill_bound,
+                                                     paged_attention_ref,
+                                                     paged_prefill_ref)
 from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.kernels.ssd import ssd as ssd_k
 from repro_torch.kernels.ssd.ref import ssd_chunked, ssd_chunked_bwd
@@ -202,6 +205,141 @@ def test_decode_launches_the_kernel_once_per_layer(card):
             torch.zeros(3, dtype=torch.int32, device=card), 0,
             torch.zeros(3, device=card), cfg=cfg, page_size=8)
         assert pa.LAUNCHES - before == cfg.n_layers
+
+
+# paged prefill at h2o-danube's chunk shape: 4 rows (the last a padding
+# row), 512 queries, 32 / 8 heads of 120, page 16, 512 pages a row; each
+# live row maps its prompt's pages past this chunk's keys.  ``drop``: a
+# mapped page of row 1 that its queries see, for the tolerance's own check
+PP_DANUBE = dict(t=512, h=32, kh=8, d=120, page=16, maxp=512, n_pages=1100,
+                 q_starts=[0, 2048, 7168, 0], q_lens=[512, 300, 512, 0],
+                 prompt_end=[1500, 3000, 8192, 0],
+                 unmapped=[(0, 0), (1, 100)], drop=60)
+# the TP-local head slices serve/tp.py hands down, at D 64
+PP_TP = [dict(t=256, h=h, kh=kh, d=64, page=16, maxp=64, n_pages=200,
+              q_starts=[0, 300, 700], q_lens=[256, 100, 256],
+              prompt_end=[400, 700, 1024], unmapped=[(1, 3)], drop=10)
+         for h, kh in ((9, 3), (3, 1))]
+
+
+def _pp_inputs(spec, seed, dtype, card):
+    """q, one layer's pools, tables, q_starts, q_lens on the card: every
+    live row's table maps random distinct pages up to ``prompt_end``, then
+    the ``unmapped`` (row, page) entries are -1."""
+    rs = np.random.RandomState(seed)
+    n = len(spec["q_starts"])
+    page, maxp = spec["page"], spec["maxp"]
+    tables = np.full((n, maxp), -1, np.int32)
+    for i, end in enumerate(spec["prompt_end"]):
+        need = -(-end // page)
+        tables[i, :need] = rs.permutation(spec["n_pages"])[:need]
+    for i, p in spec["unmapped"]:
+        tables[i, p] = -1
+    shapes = ((n, spec["t"], spec["h"], spec["d"]),
+              (spec["n_pages"], page, spec["kh"], spec["d"]),
+              (spec["n_pages"], page, spec["kh"], spec["d"]))
+    q, kp, vp = (torch.tensor(rs.randn(*s).astype(np.float32)).to(card, dtype)
+                 for s in shapes)
+    i32 = dict(dtype=torch.int32, device=card)
+    return (q, kp, vp, torch.tensor(tables).to(card),
+            torch.tensor(spec["q_starts"], **i32),
+            torch.tensor(spec["q_lens"], **i32))
+
+
+def _pp_want(q, kp, vp, tables, q_starts, q_lens, bound=False):
+    """The plain version in float32, or with ``bound`` the bf16 kernel's
+    elementwise tolerance around it, a row at a time (the plain version's
+    scores of one danube row are 0.5 GB)."""
+    rows = []
+    for i in range(q.shape[0]):
+        row = (q[i:i + 1], kp, vp, tables[i:i + 1], q_starts[i:i + 1],
+               q_lens[i:i + 1])
+        want = paged_prefill_ref(row[0].float(), kp.float(), vp.float(),
+                                 *row[3:])
+        rows.append(bf16_prefill_bound(*row, want) if bound else want)
+    return torch.cat(rows)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("spec", [PP_DANUBE] + PP_TP,
+                         ids=["danube", "tp9_3", "tp3_1"])
+def test_paged_prefill_kernel_matches_plain_version(card, spec, dtype):
+    """The kernel against ``paged_prefill_ref``.  float32: atol 2e-5.
+    bf16: ``ref.bf16_prefill_bound``, elementwise, for P rounded to bf16 as
+    the A operand of P V and the output rounded to bf16; the inputs are the
+    same bf16 values on both sides.  The tolerance is tight enough to see
+    one of row 1's visible pages left out.  Padded queries (t >= q_len) are
+    compared like the rest; a query with no visible key (the padding row,
+    and row 0's first page, which is unmapped) is exactly 0."""
+    args = _pp_inputs(spec, 7, getattr(torch, dtype), card)
+    before = (pp.LAUNCHES, pp.WGMMA_LAUNCHES, pp.FMA_LAUNCHES)
+    out = ops.paged_prefill(*args)
+    tc = dtype == "bfloat16"            # the dtype picks the kernel
+    assert (pp.LAUNCHES, pp.WGMMA_LAUNCHES, pp.FMA_LAUNCHES) == (
+        before[0] + 1, before[1] + tc, before[2] + (not tc))
+    want = _pp_want(*args)
+    tol = (_pp_want(*args, bound=True) if tc
+           else torch.full_like(want, ATOL[dtype]))
+    torch.cuda.synchronize()
+    assert out.dtype == args[0].dtype and out.shape == args[0].shape
+    err = (out.float() - want).abs()
+    assert (err <= tol).all(), f"error at {float((err / tol).max()):.3f}x tol"
+    q, kp, vp, tables, q_starts, q_lens = args
+    dropped = tables[1:2].clone()
+    assert dropped[0, spec["drop"]] >= 0
+    dropped[0, spec["drop"]] = -1
+    moved = _pp_want(q[1:2], kp, vp, dropped, q_starts[1:2], q_lens[1:2])
+    assert ((out[1].float() - moved[0]).abs() > tol[1]).any()
+    if spec is PP_DANUBE:
+        assert (out[-1] == 0).all()              # the padding row
+        assert (out[0, :spec["page"]] == 0).all()  # only page 0, unmapped
+        assert (out[0, spec["page"]:].abs().amax(-1) > 0).all()
+
+
+def test_paged_prefill_chunk_launches_the_kernel_once_per_layer(card):
+    """Both prefill entry points launch the prefill kernel n_layers times a
+    call, in float32 (FMA) and in bf16 (wgmma), and no dense flash kernel."""
+    cfg = get_config("smollm-135m").reduced()
+    tables = torch.arange(12, dtype=torch.int32, device=card).reshape(3, 4)
+    q_lens = torch.tensor([16, 9, 0], dtype=torch.int32, device=card)
+    q_starts = torch.tensor([16, 0, 0], dtype=torch.int32, device=card)
+    tokens = torch.ones(3, 16, dtype=torch.int32, device=card)
+    for dtype in (torch.float32, torch.bfloat16):
+        params = init_params(cfg, generator=torch.Generator().manual_seed(0),
+                             dtype=dtype, device=card)
+        pools = P.make_pools(cfg, 16, 16, dtype=dtype, device=card)
+        before, fa_before = pp.LAUNCHES, fa.LAUNCHES
+        P.prefill_chunk_paged(params, pools, tokens, q_lens, q_starts,
+                              tables, cfg=cfg, page_size=16)
+        assert pp.LAUNCHES - before == cfg.n_layers
+        P.prefill_shared_paged(params, pools, tokens, q_lens, q_starts,
+                               q_starts, tables, 0,
+                               torch.zeros(3, device=card), cfg=cfg,
+                               page_size=16)
+        assert pp.LAUNCHES - before == 2 * cfg.n_layers
+        assert fa.LAUNCHES == fa_before
+        torch.cuda.synchronize()
+
+
+def test_paged_prefill_wrapper_rejects_what_the_kernel_does_not_take(card):
+    args = _pp_inputs(PP_TP[0], 1, torch.bfloat16, card)
+    q, kp, vp, tables, q_starts, q_lens = args
+    before = pp.LAUNCHES
+    for d in (136, 100):      # over 128; not a multiple of 8
+        wide = [torch.cat([t] * 3, -1)[..., :d].contiguous()
+                for t in (q, kp, vp)]
+        with pytest.raises(ValueError, match="head_dim"):
+            pp.paged_prefill(*wide, tables, q_starts, q_lens)
+    with pytest.raises(TypeError):
+        pp.paged_prefill(q, kp, vp, tables.long(), q_starts, q_lens)
+    with pytest.raises(TypeError):
+        pp.paged_prefill(q.float(), kp, vp, tables, q_starts, q_lens)
+    odd = [t[:, :12].contiguous() for t in (kp, vp)]   # page 12, bf16
+    with pytest.raises(ValueError, match="page size"):
+        pp.paged_prefill(q, *odd, tables, q_starts, q_lens)
+    with pytest.raises(ValueError, match="CUDA device"):
+        pp.paged_prefill(q, kp, vp, tables.cpu(), q_starts, q_lens)
+    assert pp.LAUNCHES == before
 
 
 def _serve(cfg, device, modes):

@@ -9,6 +9,8 @@ runs its public jitted functions with the Pallas kernel in interpret
 mode; its logits are rebuilt from its dense ``forward`` and
 ``lm_logits``, with nothing in ``repro`` changed.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -222,6 +224,86 @@ def test_shared_prefix_pages_are_never_written(setup):
         assert torch.equal(shared[s][first_page], before[s])
         torch.testing.assert_close(shared[s][:-1], full[s][:-1],
                                    atol=POOL_ATOL, rtol=0)
+
+
+# the prefill attention's cases (``ops.paged_prefill``, its plain version
+# on the CPU), through both prefill entry points against the reference:
+# name -> (heads, kv heads, head dim, page, maxp, q_starts, q_lens,
+# unmapped (row, page)); chunks of 16 queries; layer 0's attention reaches
+# the KV that layer 1 writes
+PREFILL_CASES = {
+    # a later chunk of two rows, GQA 4:1 at h2o-danube's D 120
+    "later_chunk": (8, 2, 120, 8, 10, [24, 40], [16, 16], []),
+    # ragged q_lens with a padding row (q_len 0, its table all -1)
+    "ragged_padding_row": (8, 2, 120, 8, 6, [0, 8, 0], [13, 5, 0], []),
+    # padded queries (t >= q_len) beside real ones
+    "padded_queries": (9, 3, 64, 8, 6, [8, 0], [3, 9], []),
+    # an unmapped page inside the causal range, and a row whose first page
+    # is unmapped, so its first queries see no key at all
+    "unmapped_page": (8, 2, 64, 4, 12, [20, 4], [12, 12], [(0, 2),
+                                                           (1, 0)]),
+    # GQA 3:1 (the TP-local 9/3 slice) at D 64, one chunk from position 0
+    "gqa3_d64": (9, 3, 64, 4, 8, [0, 16], [12, 7], [(1, 1)]),
+    # the TP-local 3/1 slice, D 120
+    "gqa3to1_d120": (3, 1, 120, 8, 4, [5, 0, 17], [8, 2, 0], []),
+}
+
+
+@pytest.mark.parametrize("name", list(PREFILL_CASES))
+def test_prefill_attention_cases_match_reference(name):
+    """An intermediate chunk and a prefill-finishing batch over pools that
+    already hold earlier positions' KV: the pools every layer writes and
+    the greedy first tokens equal the reference's.  (A padded query's
+    output reaches neither; the card tests hold the kernel to the plain
+    version there.)"""
+    h, kh, d, page, maxp, q_starts, q_lens, unmapped = PREFILL_CASES[name]
+    n, t, n_pages = len(q_starts), 16, 40
+    shape = dict(n_heads=h, n_kv_heads=kh, head_dim=d)
+    jcfg = dataclasses.replace(jget("smollm-135m").reduced(), **shape)
+    cfg = dataclasses.replace(get_config("smollm-135m").reduced(), **shape)
+    jparams = JT.init_params(jax.random.PRNGKey(1), jcfg, dtype=jnp.float32)
+    params = from_reference(jax.tree.map(np.asarray, jparams), device="cpu")
+    rs = np.random.RandomState(sum(map(ord, name)))
+    tables = np.full((n, maxp), -1, np.int32)
+    for i in range(n):
+        if q_lens[i]:
+            need = min(maxp, -(-(q_starts[i] + q_lens[i] + page) // page))
+            tables[i, :need] = rs.permutation(n_pages)[:need]
+    for i, p in unmapped:
+        tables[i, p] = -1
+    tokens = rs.randint(0, cfg.vocab_size, (n, t)).astype(np.int32)
+    lens, starts = np.asarray(q_lens, np.int32), np.asarray(q_starts,
+                                                            np.int32)
+    # earlier chunks' KV, and one zero sink slot on the port's side
+    kv = {s: rs.randn(cfg.n_layers * n_pages, page, kh, d).astype(np.float32)
+          for s in ("k", "v")}
+
+    def both():
+        return ({s: jnp.asarray(a) for s, a in kv.items()},
+                {s: torch.cat([_t(a), torch.zeros(1, page, kh, d)])
+                 for s, a in kv.items()})
+
+    jpools, pools = both()
+    jpools = JP.prefill_chunk_paged(jparams, jpools, _j(tokens), _j(lens),
+                                    _j(starts), _j(tables), cfg=jcfg,
+                                    page_size=page)
+    P.prefill_chunk_paged(params, pools, _t(tokens), _t(lens), _t(starts),
+                          _t(tables), cfg=cfg, page_size=page)
+    _pools_close(pools, jpools)
+
+    jpools, pools = both()
+    temps, rids = np.zeros(n, np.float32), np.arange(1, n + 1, dtype=np.int32)
+    jfirst, jpools, _ = JP.prefill_shared_paged(
+        jparams, jpools, _j(tokens), _j(lens), _j(starts), _j(starts),
+        _j(tables), jax.random.PRNGKey(0), _j(temps), seq_ids=_j(rids),
+        cfg=jcfg, page_size=page)
+    first = P.prefill_shared_paged(
+        params, pools, _t(tokens), _t(lens), _t(starts), _t(starts),
+        _t(tables), 0, _t(temps), seq_ids=_t(rids), cfg=cfg, page_size=page)
+    _pools_close(pools, jpools)
+    live = [i for i in range(n) if q_lens[i]]
+    np.testing.assert_array_equal(first.numpy()[live],
+                                  np.asarray(jfirst)[live])
 
 
 def test_drops_go_to_the_sink_only(setup):
