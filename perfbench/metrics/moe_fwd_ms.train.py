@@ -1,0 +1,9 @@
+"""Device ms a traced training step spends in the forward of its layers'
+MoE FFN (router, held experts, shared expert): the CUDA events of each ``train.step`` span's
+``train.moe`` spans, summed, averaged over the traced steps.  A
+program span; None without it."""
+from perfbench import spanread
+
+
+def read(run):
+    return spanread.mean_device_ms(run, "train.moe")

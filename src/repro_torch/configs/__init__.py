@@ -16,18 +16,23 @@ from repro_torch.configs.granite_moe_1b_a400m import CONFIG as _granite
 from repro_torch.configs.llama4_scout_17b_a16e import CONFIG as _llama4
 from repro_torch.configs.zamba2_2_7b import CONFIG as _zamba2
 from repro_torch.configs.mamba2_1_3b import CONFIG as _mamba2
+from repro_torch.configs.granite_4_0_h_small import CONFIG as _granite4h
 
 ARCHS = {
     c.arch_id: c
     for c in (_smollm, _danube, _qwen2, _phi3, _chameleon, _whisper,
               _granite, _llama4, _zamba2, _mamba2)
 }
+# architectures the port runs beyond the JAX package's assignment table
+# (ARCHS, which ``all_cells`` and the twin tests walk)
+EXTRA_ARCHS = {c.arch_id: c for c in (_granite4h,)}
 
 
 def get_config(arch_id: str) -> ModelConfig:
-    if arch_id not in ARCHS:
-        raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(ARCHS)}")
-    return ARCHS[arch_id]
+    known = {**ARCHS, **EXTRA_ARCHS}
+    if arch_id not in known:
+        raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(known)}")
+    return known[arch_id]
 
 
 def get_shape(name: str) -> ShapeConfig:
@@ -46,7 +51,7 @@ def all_cells():
 
 
 __all__ = [
-    "ARCHS", "ALL_SHAPES", "ModelConfig", "MoEConfig", "SSMConfig",
-    "ShapeConfig", "TRAIN_4K", "PREFILL_32K", "DECODE_32K", "LONG_500K",
+    "ARCHS", "EXTRA_ARCHS", "ALL_SHAPES", "ModelConfig", "MoEConfig",
+    "SSMConfig", "ShapeConfig", "TRAIN_4K", "PREFILL_32K", "DECODE_32K", "LONG_500K",
     "get_config", "get_shape", "all_cells", "shape_applicable",
 ]

@@ -27,6 +27,25 @@ class MoEConfig:
     # Switch-style capacity factor; reduced() raises it so tiny smoke
     # batches never drop tokens (decode must match forward exactly)
     capacity_factor: float = 1.25
+    # the shared expert's width (0 -> n_shared_experts * d_ff_expert)
+    d_ff_shared: int = 0
+    # dropless routing (every routed pair computed, no capacity) over the
+    # held experts: the first experts_held of the n_experts the router
+    # scores (0 -> all).  One
+    # chip of an expert-parallel deployment holds such a block and computes
+    # only its experts' part of the layer.
+    dropless: bool = False
+    experts_held: int = 0
+    # weight of the load-balancing loss in the training loss
+    aux_loss_coef: float = 0.01
+
+    @property
+    def shared_width(self) -> int:
+        return self.d_ff_shared or self.n_shared_experts * self.d_ff_expert
+
+    @property
+    def n_held(self) -> int:
+        return self.experts_held or self.n_experts
 
 
 @dataclass(frozen=True)
@@ -77,6 +96,25 @@ class ModelConfig:
     frontend: str = "none"
     dtype: str = "bfloat16"
     source: str = ""
+    # muP scalars of the granitemoehybrid family, under its config.json
+    # names: embeddings times embedding_multiplier, each layer's mixer and
+    # FFN outputs times residual_multiplier, logits over logits_scaling,
+    # and attention_multiplier the softmax scale (0 -> 1/sqrt(head_dim))
+    embedding_multiplier: float = 1.0
+    residual_multiplier: float = 1.0
+    logits_scaling: float = 1.0
+    attention_multiplier: float = 0.0
+
+    def __post_init__(self):
+        # a configuration read from a file gives its groups as dicts and
+        # its pattern as a list
+        if isinstance(self.moe, dict):
+            object.__setattr__(self, "moe", MoEConfig(**self.moe))
+        if isinstance(self.ssm, dict):
+            object.__setattr__(self, "ssm", SSMConfig(**self.ssm))
+        if isinstance(self.block_pattern, list):
+            object.__setattr__(self, "block_pattern",
+                               tuple(self.block_pattern))
 
     # ---- derived ----
     @property
@@ -89,6 +127,17 @@ class ModelConfig:
     def padded_vocab(self) -> int:
         """Vocab padded to a multiple of 128 (MXU lane alignment)."""
         return _round_up(self.vocab_size, 128)
+
+    @property
+    def attn_scale(self) -> float:
+        return self.attention_multiplier or self.resolved_head_dim ** -0.5
+
+    @property
+    def per_layer_pattern(self) -> bool:
+        """A hybrid whose layers each have their own weights and an FFN
+        after every mixer (``"attn"`` and ``"mamba_ffn"`` layers), not
+        zamba2's mamba slots around one shared block."""
+        return "mamba_ffn" in self.block_pattern
 
     @property
     def is_attention_free(self) -> bool:
@@ -119,7 +168,7 @@ class ModelConfig:
                 if self.qkv_bias:
                     n += (self.n_heads + 2 * self.n_kv_heads) * hd
                 n += 2 * d  # norms
-            if k == "mamba":
+            if k in ("mamba", "mamba_ffn"):
                 assert self.ssm is not None
                 di = self.ssm.d_inner(d)
                 nh = self.ssm.n_heads(d)
@@ -137,8 +186,8 @@ class ModelConfig:
                 continue
             if self.moe is not None and (i % self.moe.moe_layer_period == 0):
                 e = self.moe
-                n += e.n_experts * 3 * d * e.d_ff_expert + d * e.n_experts
-                n += e.n_shared_experts * 3 * d * e.d_ff_expert
+                n += e.n_held * 3 * d * e.d_ff_expert + d * e.n_experts
+                n += 3 * d * e.shared_width
             else:
                 mult = 3 if self.act == "silu" else 2
                 n += mult * d * self.d_ff
@@ -170,8 +219,10 @@ class ModelConfig:
 
     def reduced(self) -> "ModelConfig":
         """Tiny same-family config for CPU smoke tests."""
+        period = len(self.block_pattern)
         kw = dict(
-            n_layers=min(self.n_layers, 2 * len(self.block_pattern)),
+            n_layers=min(self.n_layers, (1 if self.per_layer_pattern else 2)
+                         * period),
             d_model=128,
             n_heads=4 if self.n_heads else 0,
             n_kv_heads=min(self.n_kv_heads, 2) if self.n_kv_heads else 0,
@@ -182,7 +233,12 @@ class ModelConfig:
             encoder_seq_len=min(self.encoder_seq_len, 32) if self.encoder_seq_len else 0,
             n_encoder_layers=min(self.n_encoder_layers, 2),
         )
-        if self.moe is not None:
+        if self.moe is not None and self.moe.dropless:
+            kw["moe"] = dataclasses.replace(
+                self.moe, n_experts=8, top_k=min(self.moe.top_k, 2),
+                d_ff_expert=64, d_ff_shared=128 if self.moe.d_ff_shared else 0,
+                experts_held=min(self.moe.experts_held, 2))
+        elif self.moe is not None:
             kw["moe"] = MoEConfig(
                 n_experts=4, top_k=min(self.moe.top_k, 2), d_ff_expert=64,
                 moe_layer_period=self.moe.moe_layer_period,

@@ -24,7 +24,10 @@ picks the kernel:
 Any head dim that is a multiple of 8 up to 128 runs, on the next built
 width (32, 64 or 128): the bf16 kernels' tensor maps give the columns past
 d as zeros, the float32 kernels stage zeros there, and no column past d
-is stored; the softmax scale stays 1/sqrt(d).  Both keep scores out of
+is stored; the softmax scale is 1/sqrt(d) of the model's own d, or
+``sm_scale`` where the caller gives one (a model's
+``attention_multiplier``: every kernel multiplies its scores by the scale
+it is passed).  Both keep scores out of
 device memory, index the KV head as
 ``h // group`` without repeating KV, skip tile pairs that the causal or
 window mask removes whole, and keep the softmax state in float32.  They

@@ -6,9 +6,12 @@ kernels' (B, H, S, D) layout, a ``torch.autograd.Function`` whose forward
 saves (q, k, v, o, lse) and whose backward runs the dq and dkv kernels.
 A CUDA tensor goes to the hand-written kernels, which launch or raise; a
 CPU tensor goes to the plain PyTorch versions; any other device raises.
-There is no flag to pick the plain version on the card.
+There is no flag to pick the plain version on the card.  ``mha_fused``'s
+``scale`` is the softmax scale of both, 1/sqrt(D) when None.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -41,14 +44,15 @@ def mha(q, k, v, *, causal: bool = True, window: int = 0):
 class _MhaFused(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, window: int):
+    def forward(ctx, q, k, v, causal: bool, window: int, scale):
         if _on_card(q):
             o, lse = flash_attention(q, k, v, causal=causal, window=window,
-                                     return_lse=True)
+                                     sm_scale=scale, return_lse=True)
         else:
-            o, lse = attention_ref(q, k, v, causal=causal, window=window)
+            o, lse = attention_ref(q, k, v, causal=causal, window=window,
+                                   sm_scale=scale)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal, ctx.window = causal, window
+        ctx.causal, ctx.window, ctx.scale = causal, window, scale
         return o
 
     @staticmethod
@@ -56,11 +60,12 @@ class _MhaFused(torch.autograd.Function):
         q, k, v, o, lse = ctx.saved_tensors
         bwd = flash_attention_bwd if _on_card(q) else attention_bwd_ref
         dq, dk, dv = bwd(q, k, v, o, do, lse, causal=ctx.causal,
-                         window=ctx.window)
-        return dq, dk, dv, None, None
+                         window=ctx.window, sm_scale=ctx.scale)
+        return dq, dk, dv, None, None, None
 
 
-def mha_fused(q, k, v, causal: bool = True, window: int = 0):
+def mha_fused(q, k, v, causal: bool = True, window: int = 0,
+              scale: Optional[float] = None):
     """Differentiable fused attention: forward kernel, dq and dkv kernels.
     Layout (B, H, S, D); k, v may have fewer (KV) heads than q."""
-    return _MhaFused.apply(q, k, v, causal, window)
+    return _MhaFused.apply(q, k, v, causal, window, scale)

@@ -31,6 +31,8 @@ on its own block and the softmax statistics meet in two all-reduces.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.configs.base import ModelConfig
@@ -103,11 +105,12 @@ def out_proj(params, cfg: ModelConfig, att):
 
 def attend_chunked(q, k, v, *, causal: bool = True, window: int = 0,
                    q_offset: int = 0, chunk: int = 512,
-                   fused: bool = False):
+                   fused: bool = False, scale: Optional[float] = None):
     """Exact attention.  q (B,Sq,H,hd); k,v (B,Sk,K,hd) -> (B,Sq,H,hd).
 
     ``q_offset``: absolute position of q[0] relative to k[0].  ``window``
-    > 0 applies a sliding window.  On the card: the flash-attention
+    > 0 applies a sliding window.  ``scale``: the softmax scale (None:
+    1/sqrt(hd)).  On the card: the flash-attention
     kernels, which take ``q_offset`` 0 (what every caller on the training
     path passes).  On the CPU: query chunks of ``chunk`` rows, each an
     exact masked softmax over all keys.  ``fused`` is kept for signature
@@ -119,12 +122,12 @@ def attend_chunked(q, k, v, *, causal: bool = True, window: int = 0,
                 "attend_chunked on the card: the flash-attention kernels "
                 "take q_offset 0")
         o = ops.mha_fused(q.transpose(1, 2), k.transpose(1, 2),
-                          v.transpose(1, 2), causal, window)
+                          v.transpose(1, 2), causal, window, scale)
         return o.transpose(1, 2)
     b, sq, h, hd = q.shape
     sk = k.shape[1]
     g = h // k.shape[2]
-    scale = hd ** -0.5
+    scale = hd ** -0.5 if scale is None else scale
     chunk = min(chunk, sq)
     # flat heads: KV repeated to H heads, as the reference does
     ke = k.repeat_interleave(g, dim=2) if g > 1 else k

@@ -27,6 +27,20 @@ row is discarded.  ``moe_specs`` is the reference's expert-parallel
 sharding; ``frac_mean`` lets a rank that holds a block of the batch take
 the load-balancing loss's routed fractions over the whole batch, as the
 reference's one program does.
+
+A ``dropless`` configuration (granite-4.0-h-small; no JAX twin) takes
+``held_apply`` instead: the router scores all ``n_experts`` and the layer
+computes only its held block of ``experts_held`` experts (one chip's share
+of an expert-parallel deployment; on one chip there is no exchange), with
+no capacity: ``dropless`` gathers each held expert's routed rows into a
+block of its own, runs the experts' SwiGLU on their blocks alone (bf16 on
+the card: three ``torch._grouped_mm``, whose offsets stay on the card;
+else one product per expert) and adds the gated rows back to their
+tokens; the shared expert runs while the host waits for the rows' split.
+It
+counts, in ``telemetry.spans``, every routed pair (``moe.pairs``), the
+pairs of held experts (``moe.pairs_held``) and the largest held expert's
+(``moe.pairs_held_max``, summed over layers).
 """
 from __future__ import annotations
 
@@ -39,6 +53,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers, mlp
 from repro_torch.models.sharding import MeshRules, P
+from repro_torch.telemetry import spans
 
 
 def _round_up(x: int, m: int) -> int:
@@ -53,7 +68,7 @@ def moe_init(gen: torch.Generator, cfg: ModelConfig, *,
     d, f = cfg.d_model, e.d_ff_expert
 
     def ew(a, b):
-        return (torch.randn((e.n_experts, a, b), generator=gen,
+        return (torch.randn((e.n_held, a, b), generator=gen,
                             device=gen.device)
                 * (1.0 / math.sqrt(a))).to(dtype)
 
@@ -63,8 +78,8 @@ def moe_init(gen: torch.Generator, cfg: ModelConfig, *,
         "w_up": ew(d, f),
         "w_down": ew(f, d),
     }
-    if e.n_shared_experts:
-        fs = e.n_shared_experts * f
+    if e.shared_width:
+        fs = e.shared_width
         p["shared"] = {
             "w_gate": layers.dense_init(gen, d, fs, dtype=dtype),
             "w_up": layers.dense_init(gen, d, fs, dtype=dtype),
@@ -76,7 +91,7 @@ def moe_init(gen: torch.Generator, cfg: ModelConfig, *,
 def moe_specs(cfg: ModelConfig, rules: MeshRules) -> dict:
     e = cfg.moe
     d, f = cfg.d_model, e.d_ff_expert
-    ep = rules.tp(e.n_experts)   # expert-parallel on the model dim
+    ep = rules.tp(e.n_held)      # expert-parallel on the model dim
     # d/f inner dims are NOT row-sharded: per-expert weights are small,
     # EP is the sharding
     s = {
@@ -85,8 +100,8 @@ def moe_specs(cfg: ModelConfig, rules: MeshRules) -> dict:
         "w_up": P(ep, None, None),
         "w_down": P(ep, None, None),
     }
-    if e.n_shared_experts:
-        fs = e.n_shared_experts * f
+    if e.shared_width:
+        fs = e.shared_width
         s["shared"] = {
             "w_gate": P(rules.fsdp(d), rules.tp(fs)),
             "w_up": P(rules.fsdp(d), rules.tp(fs)),
@@ -175,6 +190,8 @@ def moe_apply(params, cfg: ModelConfig, x, *, capacity_factor: float = 0.0,
     """x (B, S, D) -> (out (B, S, D), aux_loss float32 scalar).
     ``frac_mean``: see :func:`route`."""
     e = cfg.moe
+    if e.dropless:
+        return held_apply(params, cfg, x)
     capacity_factor = capacity_factor or e.capacity_factor
     b, s, d = x.shape
     t = b * s
@@ -192,3 +209,114 @@ def moe_apply(params, cfg: ModelConfig, x, *, capacity_factor: float = 0.0,
     if e.n_shared_experts:
         out = out + mlp.mlp_apply(params["shared"], cfg, x)
     return out, aux.float()
+
+
+# rows each held expert's block is padded to (at least one block, so none
+# is empty): the grouped products' offsets are then aligned, and in the
+# per-expert loop padded row counts repeat
+ROW_ALIGN = 128
+
+
+def _to_host(counts, work):
+    """(``counts`` as a host list, ``work()``'s result): on the card the
+    copy is enqueued, then ``work``, and the host waits for the copy
+    alone, so the card runs ``work`` while the host takes the counts and
+    enqueues what follows."""
+    if counts.device.type != "cuda":
+        return counts.tolist(), work()
+    host = torch.empty(counts.shape, dtype=counts.dtype, pin_memory=True)
+    host.copy_(counts, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    out = work()
+    done.synchronize()
+    return host.tolist(), out
+
+
+def grouped(x) -> bool:
+    """Whether the held experts' products on ``x`` are grouped GEMMs
+    (``torch._grouped_mm``: bf16 on the card), not one product per
+    expert."""
+    return x.device.type == "cuda" and x.dtype == torch.bfloat16
+
+
+def _swiglu_blocks(buf, wg, wu, wd, blocks, blocks_t, group):
+    """Each held expert's SwiGLU on its block of ``buf`` (rows in expert
+    order, block i ``blocks[i]`` rows): three grouped GEMMs, or three
+    products per expert."""
+    if group:
+        offs = torch.cumsum(blocks_t, 0).to(torch.int32)
+        h = (F.silu(torch._grouped_mm(buf, wg, offs=offs))
+             * torch._grouped_mm(buf, wu, offs=offs))
+        return torch._grouped_mm(h, wd, offs=offs)
+    return torch.cat([(F.silu(xe @ wg[i]) * (xe @ wu[i])) @ wd[i]
+                      for i, xe in enumerate(buf.split(blocks))])
+
+
+def dropless(params, xf, gates, local, n_held: int, work=None,
+             group=None):
+    """xf (T, D); gates (T, k) float32; local (T, k) each pair's expert
+    (held: 0 .. n_held - 1).  Every pair whose expert is held is computed:
+    its row of ``xf`` goes into its expert's block (blocks padded with zero
+    rows to a multiple of ``ROW_ALIGN``), each block through its expert's
+    SwiGLU (``group``: grouped GEMMs, default ``grouped(xf)``), times its
+    gate, and is added back to its token.  The layer waits once for the
+    experts' row counts; what needs no count (the pairs' order and block
+    rows, the weights' casts, ``work``: the shared expert) is enqueued
+    before it, so the card runs it while the host waits.  Returns ((T, D)
+    in xf's dtype, each held expert's pair count, ``work()``'s result)."""
+    t, k = local.shape
+    dt = xf.dtype
+    flat = local.reshape(-1)
+    key = torch.where((flat >= 0) & (flat < n_held), flat, n_held)
+    order = torch.argsort(key, stable=True)
+    counts = torch.bincount(key, minlength=n_held + 1)[:n_held]
+
+    def before_the_wait():
+        blocks_t = torch.div(counts + ROW_ALIGN - 1, ROW_ALIGN,
+                             rounding_mode="floor").clamp_min(1) * ROW_ALIGN
+        # each sorted pair's row: its expert's block start plus its rank
+        # among that expert's pairs (held pairs come first in ``order``;
+        # the rest take the last entry and are cut off after the wait)
+        shift = torch.cat([torch.cumsum(blocks_t, 0) - blocks_t
+                           - torch.cumsum(counts, 0) + counts,
+                           counts.new_zeros(1)])
+        dest = (torch.arange(t * k, device=xf.device)
+                + shift[key.index_select(0, order)])
+        w = [params[n].to(dt) for n in ("w_gate", "w_up", "w_down")]
+        return (blocks_t, dest, torch.div(order, k, rounding_mode="floor"),
+                gates.reshape(-1).index_select(0, order).to(dt), w,
+                work() if work else None)
+
+    sizes, (blocks_t, dest, rows, g, (wg, wu, wd), extra) = _to_host(
+        counts, before_the_wait)
+    n = sum(sizes)
+    dest, rows, g = dest[:n], rows[:n], g[:n]
+    blocks = [max(-(-c // ROW_ALIGN), 1) * ROW_ALIGN for c in sizes]
+    buf = xf.new_zeros(sum(blocks), xf.shape[1]).index_copy(0, dest,
+                                                            xf[rows])
+    y = _swiglu_blocks(buf, wg, wu, wd, blocks, blocks_t,
+                       grouped(xf) if group is None else group)
+    y = y.index_select(0, dest) * g[:, None]
+    out = torch.zeros(t, xf.shape[1], dtype=torch.float32, device=xf.device)
+    return out.index_add(0, rows, y.float()).to(dt), sizes, extra
+
+
+def held_apply(params, cfg: ModelConfig, x
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B, S, D) -> (out, aux loss): routing over all ``n_experts``
+    (float32 logits, top-k, gates normalised over the k), the held
+    experts' part of the result by :func:`dropless`, plus the shared
+    expert, which every chip computes alike."""
+    e = cfg.moe
+    b, s, d = x.shape
+    xf = x.reshape(b * s, d)
+    gates, eidx, aux = route(params, cfg, xf)
+    shared = ((lambda: mlp.mlp_apply(params["shared"], cfg, x))
+              if e.shared_width else None)
+    y, sizes, sh = dropless(params, xf, gates, eidx, e.n_held, shared)
+    spans.count("moe.pairs", eidx.numel())
+    spans.count("moe.pairs_held", sum(sizes))
+    spans.count("moe.pairs_held_max", max(sizes))
+    out = y.reshape(b, s, d)
+    return (out if sh is None else out + sh), aux.float()

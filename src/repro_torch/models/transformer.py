@@ -29,6 +29,18 @@ its self-attention KV.  ``remat`` wraps each decoder, mamba or hybrid-cycle
 body in ``torch.utils.checkpoint`` (``_remat``); the encoder runs without,
 as the reference's encoder scan does.
 
+A per-layer hybrid (``cfg.per_layer_pattern``: granite-4.0-h-small,
+which has no JAX twin) cycles ``"mamba_ffn"`` and ``"attn"`` layers, each
+with its own weights and the MoE FFN after its mixer, stacked by kind in
+``mamba_layers`` and ``attn_layers``; its muP scalars
+(``embedding_multiplier``, ``residual_multiplier``, ``logits_scaling``,
+``attention_multiplier``) scale the embeddings, both residual branches,
+the logits and the softmax, and its attention has no positions
+(``pos_embed == "none"``).  Each layer's mixer and MoE run under the
+device-timed spans ``train.mamba`` / ``train.attn`` and ``train.moe``.
+It trains on one device; neither the decode cache nor a mesh's split
+serves it.
+
 ``param_specs`` and ``cache_specs`` are the reference's partition-spec
 trees, congruent with ``init_params`` and ``init_cache``.  On a mesh
 (``launch/steps.py``) each rank runs these functions on its own block:
@@ -52,6 +64,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention, layers, mlp, moe, ssm
 from repro_torch.models.sharding import MeshRules, P, constrain
+from repro_torch.telemetry import spans
 
 
 def _uniform(cfg: ModelConfig) -> bool:
@@ -104,6 +117,17 @@ def _mamba_layer(gen, cfg: ModelConfig) -> Dict[str, Any]:
             "mamba": ssm.mamba_init(gen, cfg)}
 
 
+def _mamba_ffn_layer(gen, cfg: ModelConfig) -> Dict[str, Any]:
+    """A per-layer hybrid's Mamba-2 mixer plus its MoE."""
+    dev = gen.device
+    return {"norm1": _norm_init(cfg, dev), "mamba": ssm.mamba_init(gen, cfg),
+            "norm2": _norm_init(cfg, dev), "ffn": moe.moe_init(gen, cfg)}
+
+
+_PER_LAYER = {"mamba_ffn": ("mamba_layers", _mamba_ffn_layer),
+              "attn": ("attn_layers", _attn_layer)}
+
+
 def init_params(cfg: ModelConfig, *, generator: torch.Generator,
                 dtype=torch.bfloat16, device=None) -> Dict[str, Any]:
     """Parameter tree with the reference ``init_params`` key tree and
@@ -127,6 +151,12 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator,
     if not cfg.tie_embeddings:
         p["lm_head"] = cast(layers.dense_init(generator, cfg.d_model,
                                               cfg.padded_vocab))
+    if cfg.per_layer_pattern:
+        kinds = cfg.layer_kinds()
+        for kind, (key, make) in _PER_LAYER.items():
+            p[key] = _stack([cast(make(generator, cfg))
+                             for k in kinds if k == kind])
+        return p
     if not _uniform(cfg):
         nc = _n_cycles(cfg)
         slots = []
@@ -202,7 +232,13 @@ def param_specs(cfg: ModelConfig, rules: MeshRules) -> Dict:
     if not cfg.tie_embeddings:
         s["lm_head"] = P(rules.fsdp(cfg.d_model), rules.tp(cfg.padded_vocab))
     cross = cfg.n_encoder_layers > 0
-    if _uniform(cfg):
+    if cfg.per_layer_pattern:
+        s["mamba_layers"] = _lift(dict(
+            norm1=_norm_specs(cfg), mamba=ssm.mamba_specs(cfg, rules),
+            norm2=_norm_specs(cfg),
+            ffn=_attn_layer_specs(cfg, rules)["ffn"]))
+        s["attn_layers"] = _lift(_attn_layer_specs(cfg, rules))
+    elif _uniform(cfg):
         per = (_mamba_layer_specs(cfg, rules)
                if cfg.block_pattern[0] == "mamba"
                else _attn_layer_specs(cfg, rules, cross=cross))
@@ -224,10 +260,13 @@ def param_specs(cfg: ModelConfig, rules: MeshRules) -> Dict:
 
 
 def lm_logits(params, cfg: ModelConfig, hidden):
-    """hidden (..., D) -> logits (..., V) float32."""
+    """hidden (..., D) -> logits (..., V) float32 (over
+    ``logits_scaling`` where the model has one)."""
     if cfg.tie_embeddings:
-        return hidden.float() @ params["embed"]["table"].float().T
-    return hidden.float() @ params["lm_head"].float()
+        out = hidden.float() @ params["embed"]["table"].float().T
+    else:
+        out = hidden.float() @ params["lm_head"].float()
+    return out if cfg.logits_scaling == 1.0 else out / cfg.logits_scaling
 
 
 def _unstack(tree, n: int):
@@ -304,6 +343,46 @@ def _mamba_block_fwd(p, cfg: ModelConfig, x):
     return x + out, final_cache
 
 
+def _mixer_ffn_fwd(p, cfg: ModelConfig, x, kind: str, fused: bool):
+    """One layer of a per-layer hybrid: x + r * mixer(norm1(x)), then
+    x + r * moe(norm2(x)), r the ``residual_multiplier``; attention has no
+    positions (NoPE).  Returns (x, the MoE's aux loss)."""
+    r = cfg.residual_multiplier
+    dev = x.device
+    h = layers.norm_apply(p["norm1"], x, cfg.norm_eps)
+    if kind == "attn":
+        with spans.span("train.attn", device=dev):
+            q, k, v = attention.qkv_proj(p["attn"], cfg, h)
+            att = attention.attend_chunked(q, k, v, causal=True,
+                                           window=cfg.swa_window, fused=fused,
+                                           scale=cfg.attn_scale)
+            mix = attention.out_proj(p["attn"], cfg, att)
+    else:
+        with spans.span("train.mamba", device=dev):
+            mix, _ = ssm.mamba_apply(p["mamba"], cfg, h)
+    x = x + mix * r
+    h = layers.norm_apply(p["norm2"], x, cfg.norm_eps)
+    with spans.span("train.moe", device=dev):
+        out, aux = _ffn(p["ffn"], cfg, h)
+    return x + out * r, aux
+
+
+def _per_layer_fwd(params, cfg: ModelConfig, x, *, fused: bool,
+                   remat: str):
+    """Every layer in order, each kind's weights taken from its stack in
+    turn.  Returns (final hidden states, summed aux loss)."""
+    kinds = cfg.layer_kinds()
+    stacks = {kind: iter(_unstack(params[key], kinds.count(kind)))
+              for kind, (key, _) in _PER_LAYER.items()}
+    bodies = {kind: _remat(lambda lp, x, kind=kind: _mixer_ffn_fwd(
+        lp, cfg, x, kind, fused), remat) for kind in _PER_LAYER}
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for kind in kinds:
+        x, la = bodies[kind](next(stacks[kind]), x)
+        aux = aux + la
+    return layers.norm_apply(params["final_norm"], x, cfg.norm_eps), aux
+
+
 def _save_dots(ctx, op, *args, **kwargs):
     if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
         return CheckpointPolicy.MUST_SAVE
@@ -378,6 +457,8 @@ def forward(params, cfg: ModelConfig, tokens, *, encoder_frames=None,
     module's docstring); None runs the whole model.
     """
     x = _embed_tokens(params, cfg, tokens)
+    if cfg.embedding_multiplier != 1.0:
+        x = x * cfg.embedding_multiplier
     if compute_dtype is not None:
         x = x.to(compute_dtype)
         if encoder_frames is not None:
@@ -389,6 +470,14 @@ def forward(params, cfg: ModelConfig, tokens, *, encoder_frames=None,
         if encoder_frames is None:
             raise ValueError(f"{cfg.arch_id} needs encoder frames")
         enc_out = encode(params, cfg, encoder_frames, sharded)
+    if cfg.per_layer_pattern:
+        if collect_kv or sharded is not None:
+            raise NotImplementedError(
+                f"{cfg.arch_id}: a per-layer hybrid runs whole, without a "
+                "decode cache or a mesh's split")
+        x, aux = _per_layer_fwd(params, cfg, x, fused=fused_attention,
+                                remat=remat)
+        return x, aux, None, (None, None, None)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if not _uniform(cfg):
         x, kv, ms = _hybrid_fwd(params, cfg, x, collect_kv=collect_kv,
@@ -500,11 +589,16 @@ def xent_loss(params, cfg: ModelConfig, hidden, labels, mask, *,
 
 
 def loss_fn(params, cfg: ModelConfig, batch, *, remat: str = "none",
-            rules: Optional[MeshRules] = None, aux_weight: float = 0.01,
+            rules: Optional[MeshRules] = None,
+            aux_weight: Optional[float] = None,
             compute_dtype=None, fused_attention: bool = False,
             sharded=None):
     """batch: {"tokens" (B,S), optional "frames" (B,enc_seq,D)}.
-    Next-token LM loss.  Returns (total, {"loss", "aux_loss", "tokens"})."""
+    Next-token LM loss plus ``aux_weight`` (None: the MoE config's
+    ``aux_loss_coef``, 0.01 by default) times the aux loss.  Returns
+    (total, {"loss", "aux_loss", "tokens"})."""
+    if aux_weight is None:
+        aux_weight = cfg.moe.aux_loss_coef if cfg.moe is not None else 0.01
     tokens = batch["tokens"].long()
     hidden, aux, _, _ = forward(params, cfg, tokens,
                                 encoder_frames=batch.get("frames"),
@@ -523,6 +617,11 @@ def loss_fn(params, cfg: ModelConfig, batch, *, remat: str = "none",
 
 
 # ================================================================= caches
+def _not_served(cfg: ModelConfig):
+    raise NotImplementedError(f"{cfg.arch_id}: the decode cache does not "
+                              "serve a per-layer hybrid")
+
+
 def decode_cache_len(cfg: ModelConfig, max_len: int) -> int:
     """Physical KV length: SWA archs cap at their window (ring buffer)."""
     if cfg.swa_window:
@@ -543,6 +642,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     float32}}, whose size does not depend on ``max_len``.  A hybrid:
     {"mamba": {"conv" (NC,n_mamba,B,K-1,C), "ssm" (NC,n_mamba,B,H,P,N)},
     "k"/"v" (NC,B,KL,K,hd)}, KL at most 4096, one ring per cycle."""
+    if cfg.per_layer_pattern:
+        _not_served(cfg)
     device = resolve_device(device)
     if not _uniform(cfg):
         lead = (_n_cycles(cfg),
@@ -702,6 +803,8 @@ def decode_step(params, cfg: ModelConfig, cache: Dict, tokens, pos, *,
     and returned: the port's form of the reference's donated cache.  An
     encoder-decoder's ``xk``/``xv`` are read by every layer's
     cross-attention and carried unchanged."""
+    if cfg.per_layer_pattern:
+        _not_served(cfg)
     x = _embed_tokens_decode(params, cfg, tokens, pos)
     if not _uniform(cfg):
         x = _hybrid_decode(params, cfg, cache, x,

@@ -30,6 +30,11 @@ where it would read as device work.
 time is read in :func:`snapshot` once both have completed.  No span waits
 for the device.
 
+**Counters.**  :func:`count` adds to a named host counter in
+:data:`COUNTS`, recording or not: the callers count what they already
+hold on the host (the MoE layer's routed pairs, ``models/moe.py``), and a
+reader takes the difference over the steps it reads.
+
 **Buffer.**  At most ``capacity`` spans (65,536) are kept; the oldest go
 first and :attr:`Recorder.dropped` counts them.  :func:`snapshot` returns
 them without draining, :func:`export_chrome` writes them as Chrome-trace
@@ -233,6 +238,14 @@ class Recorder:
             self._buf.clear()
             self.dropped = 0
             self._on = False
+
+
+COUNTS: Dict[str, int] = collections.Counter()
+
+
+def count(name: str, n: int) -> None:
+    """Add ``n`` to the counter ``name``."""
+    COUNTS[name] += int(n)
 
 
 RECORDER = Recorder()

@@ -1206,3 +1206,101 @@ def test_device_spans_time_the_card(card, tmp_path):
     for phase in ("train.forward", "train.backward", "train.optimizer"):
         got = [r.device_ms for r in recs if r.name == phase]
         assert len(got) == 2 and all(x is not None and x > 0 for x in got)
+
+
+GRANITE_FA = (1, 32, 8, 1024, 1024, 128, True, 0)   # granite-4.0-h-small
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernels_at_granites_softmax_scale(card, dtype):
+    """The forward, dq and dkv kernels at granite-4.0-h-small's softmax
+    scale (``attention_multiplier`` 1/128, not 1/sqrt(128)), D 128, 32 / 8
+    heads, causal, against the plain versions at that scale, with the
+    tolerances of the tests above; the default scale gives another
+    output."""
+    scale = 0.0078125
+    q, k, v, do = _fa_inputs(GRANITE_FA, 6, getattr(torch, dtype), card, n=4)
+    o, lse = fa.flash_attention(q, k, v, causal=True, sm_scale=scale,
+                                return_lse=True)
+    want_o, want_lse = attention_ref(q.float(), k.float(), v.float(),
+                                     causal=True, sm_scale=scale)
+    torch.testing.assert_close(o.float(), want_o, atol=ATOL[dtype], rtol=0)
+    torch.testing.assert_close(lse, want_lse, atol=ATOL[dtype], rtol=0)
+    assert float((fa.flash_attention(q, k, v, causal=True).float()
+                  - want_o).abs().max()) > 10 * ATOL[dtype]
+    dq, dk, dv = fab.flash_attention_bwd(q, k, v, o, do, lse, causal=True,
+                                         sm_scale=scale)
+    f32 = [t.float() for t in (q, k, v, o, do)]
+    kw = dict(causal=True, sm_scale=scale)
+    want = attention_bwd_ref(*f32, lse, **kw)
+    bounds = ((None, None, None) if dtype == "float32" else
+              (bf16_dq_bound(*f32, lse, **kw), *bf16_dkv_bound(*f32, lse,
+                                                                **kw)))
+    del f32
+    torch.cuda.synchronize()
+    for got, ref, bound in zip((dq, dk, dv), want, bounds):
+        _close_grad(got, ref, dtype, bound)
+
+
+@pytest.mark.parametrize("kind", ["mamba_ffn", "attn"])
+def test_granite_layer_at_full_width_matches_the_reference(card, kind):
+    """One granite-4.0-h-small layer of each kind at its published widths
+    (d 4096; Mamba-2 128 heads of 64, d_state 128; attention 32 / 8 heads
+    of 128 at scale 1/128; 9 of 72 experts held, top-10, shared expert
+    1536) in float32 on the card, through the flash or SSD kernel and the
+    dropless expert layer, against the plain reference's block (float32,
+    TF32 off) on 2 x 512 tokens: the output within 1e-4 of the
+    reference's norm (float32 sums in other orders, the scan's and the
+    flash kernel's own), the Switch loss within 1e-5."""
+    from perfbench import harness, weights_granite4h
+    from perfbench.reference.dense import no_tf32
+    from perfbench.reference.mamba2 import flatten
+    ref = harness.reference_module("granite4h")
+    config = dict(harness.load_config("granite-4.0-h-small"), n_layers=1,
+                  block_pattern=[kind], dtype="float32")
+    cfg = harness.model_config(config)
+    params = weights_granite4h.make(config, 3, torch.float32, card)
+    key, keys = ref.STACKS[kind]
+    x = torch.randn(2, 512, 4096, device=card,
+                    generator=torch.Generator(card).manual_seed(4))
+    with no_tf32():
+        got, aux = T._mixer_ffn_fwd(T._unstack(params[key], 1)[0], cfg, x,
+                                    kind, False)
+        flat = flatten(params)
+        leaves = [flat[f"{key}/{k}"][0] for k in
+                  ("norm1/scale", "norm2/scale") + keys + ref.FFN_KEYS]
+        want, want_aux = ref.block(config, False, kind, x, *leaves)
+    err = float((got - want).norm() / want.norm())
+    assert err < 1e-4, err
+    assert abs(float(aux) - float(want_aux)) < 1e-5
+
+
+def test_dropless_grouped_products_match_the_loop_on_the_card(card):
+    """The held experts' grouped GEMMs (``torch._grouped_mm``, bf16) against
+    one product per expert, at granite-4.0-h-small's widths (9 experts of
+    4096 x 768), on 4096 tokens with uneven loads and a held expert that no
+    pair chose: output and gradients of the input and of every expert's
+    weights within 2^-8 of the loop's norm (the two sum each product in
+    float32 in other orders; both round the same bf16 operands)."""
+    from repro_torch.models import moe
+    g = torch.Generator(card).manual_seed(11)
+    d, f, n_held = 4096, 768, 9
+    w = {k: (torch.randn(n_held, a, b, device=card, generator=g)
+             / a ** 0.5).requires_grad_(True)
+         for k, (a, b) in (("w_gate", (d, f)), ("w_up", (d, f)),
+                           ("w_down", (f, d)))}
+    local = torch.randint(-3, 12, (4096, 10), device=card, generator=g)
+    local[local == 4] = 5                   # expert 4 holds no pair
+    gates = torch.rand(4096, 10, device=card, generator=g)
+    x = torch.randn(4096, d, device=card, generator=g).bfloat16()
+    x.requires_grad_(True)
+    res = {}
+    for group in (True, False):
+        out, sizes, _ = moe.dropless(w, x, gates, local, n_held, group=group)
+        grads = torch.autograd.grad(out.float().square().sum(),
+                                    [x, *w.values()])
+        res[group] = (out, *grads)
+    assert sizes[4] == 0 and min(sizes[:4] + sizes[5:]) > 0
+    for a, b in zip(res[True], res[False]):
+        err = float((a.float() - b.float()).norm() / b.float().norm())
+        assert err < 2 ** -8, err
